@@ -4,8 +4,8 @@ that has only PyTorch:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held bit for bit against the plain torch permutation, and
-proofs made on the card against the port's CPU proofs (which the other
+Each mode's kernel is held bit for bit against the plain torch permutation,
+and proofs made on the card against the port's CPU proofs (which the other
 test_torch_* files hold against the JAX package)."""
 
 import numpy as np
@@ -37,14 +37,30 @@ def test_kernel_matches_plain(card, h):
     states = np.random.default_rng(h).integers(0, 1 << 64, (h, 12),
                                                dtype=np.uint64)
     x = gl.from_u64(states, card)
-    before = poseidon_cuda.launches
+    before = poseidon_cuda.launches["mxu96"]
     out = pos.permute(x)
-    assert poseidon_cuda.launches == before + 1
+    assert poseidon_cuda.launches["mxu96"] == before + 1
+    assert torch.equal(out, pos.permute_plain(x))
+
+
+@pytest.mark.parametrize("mode", poseidon_cuda.MODES)
+@pytest.mark.parametrize("h", [517, 1 << 16])
+def test_mode_kernel_matches_plain(card, mode, h):
+    rng = np.random.default_rng(h)
+    states = rng.integers(0, gl.P, (h, 12), dtype=np.uint64)
+    states[-2:] = [np.zeros(12, np.uint64), np.full(12, gl.P - 1, np.uint64)]
+    x = gl.from_u64(states, card)
+    before = dict(poseidon_cuda.launches)
+    out = poseidon_cuda.ENTRY[mode](x)
+    assert poseidon_cuda.launches[mode] == before[mode] + 1
+    assert {m: n for m, n in poseidon_cuda.launches.items() if m != mode} == \
+        {m: n for m, n in before.items() if m != mode}
+    assert out.shape == x.shape and out.is_contiguous()
     assert torch.equal(out, pos.permute_plain(x))
 
 
 def test_kernel_rejects_what_it_does_not_take(card):
-    before = poseidon_cuda.launches
+    before = dict(poseidon_cuda.launches)
     x = torch.zeros((8, 12), dtype=torch.int64, device=card)
     with pytest.raises(TypeError):
         poseidon_cuda.permute(x.to(torch.int32))

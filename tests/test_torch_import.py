@@ -27,11 +27,17 @@ def test_port_imports_without_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert not any(k == 'zkevm_prover_tpu' or k.startswith('zkevm_prover_tpu.')"
         " for k in sys.modules), 'JAX package imported'\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    names = set(res.stdout.split())
+    assert len(names) >= 28
+    sms = ("binary", "memory", "arith", "mem_align", "padding_pg",
+           "climb_key", "poseidon_g")
+    assert {f"zkevm_prover_tpu_torch.executor.sm.{sm}" for sm in sms} <= names
+    assert {"zkevm_prover_tpu_torch.executor.examples",
+            "zkevm_prover_tpu_torch.ops.poseidon_cuda"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -64,9 +70,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_cuda_wrapper_rejects_cpu_tensor():
     from zkevm_prover_tpu_torch.ops import poseidon_cuda
 
-    before = poseidon_cuda.launches
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        poseidon_cuda.permute(torch.zeros((4, 12), dtype=torch.int64))
+    before = dict(poseidon_cuda.launches)
+    for mode in poseidon_cuda.MODES:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            poseidon_cuda.ENTRY[mode](torch.zeros((4, 12), dtype=torch.int64))
     assert poseidon_cuda.launches == before
 
 
@@ -74,5 +81,6 @@ def test_executor_refuses_unported_actions():
     from zkevm_prover_tpu_torch.executor import BatchActions, Executor
 
     ex = Executor(device="cpu")
-    with pytest.raises(NotImplementedError, match="binary"):
-        ex.execute(BatchActions(binary=[{"a": 1}]))
+    for kind in ("storage", "keccak", "sha256", "hashp"):
+        with pytest.raises(NotImplementedError, match=kind):
+            ex.execute(BatchActions(**{kind: [{"a": 1}]}))

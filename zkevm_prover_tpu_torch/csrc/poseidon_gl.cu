@@ -9,8 +9,9 @@
 // the MDS as int8 matmuls on 7-bit limbs; none of that carries over here.
 //
 // Design: one thread per state, the 12 lanes in u64 registers, Goldilocks
-// multiplies through __umul64hi (goldilocks.cuh), round constants and MDS
-// coefficients in __constant__ memory (every thread of a warp reads the same
+// multiplies through __umul64hi (goldilocks.cuh), the rounds of
+// poseidon_common.cuh, round constants and MDS coefficients in __constant__
+// memory (every thread of a warp reads the same
 // word, so each read is a broadcast). The MDS is a small-coefficient
 // multiply-accumulate on the u32 halves of each lane, as _mds_small in
 // ops/poseidon_gl.py does, then one 128-bit reduction per output lane.
@@ -22,101 +23,43 @@
 // 32-bit multiply-adds, against 192 bytes of device-memory traffic (96 in,
 // 96 out): thousands of integer operations per byte moved.
 //
-// Left for later: coalescing the 96-byte rows through shared memory (each
-// thread now reads its own row), the sparse partial-round MDS factorisation,
-// and fusing the Merkle row sponge and level hash so that digests stay on
-// chip between permutations.
+// Left for later: the sparse partial-round MDS factorisation, and fusing the
+// Merkle row sponge and level hash so that digests stay on chip between
+// permutations. (Staging the 96-byte rows through shared memory, the
+// "blocked" mode's poseidon_gl_blocked.cu, measured slower on the H100.)
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "goldilocks.cuh"
+#include "poseidon_common.cuh"
 
 namespace {
 
-constexpr int WIDTH = 12;
-constexpr int HALF_F = 4;     // full rounds before and after the partial ones
-constexpr int ROUNDS_P = 22;
-constexpr int N_ROUNDS = 2 * HALF_F + ROUNDS_P;
 constexpr int THREADS = 128;
-
-__constant__ uint64_t RC[N_ROUNDS * WIDTH];
-__constant__ uint32_t MDS[WIDTH * WIDTH];
-
-__device__ __forceinline__ uint64_t sbox(uint64_t x) {
-  uint64_t x3 = gl::mul(gl::square(x), x);
-  return gl::mul(gl::mul(x3, x3), x);
-}
-
-__device__ __forceinline__ void mds(uint64_t s[WIDTH]) {
-  uint32_t lo[WIDTH], hi[WIDTH];
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) {
-    lo[j] = static_cast<uint32_t>(s[j]);
-    hi[j] = static_cast<uint32_t>(s[j] >> 32);
-  }
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) {
-    // acc_lo, acc_hi < 12 * 2^16 * 2^32 < 2^53: no overflow
-    uint64_t acc_lo = 0, acc_hi = 0;
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j) {
-      uint64_t c = MDS[i * WIDTH + j];
-      acc_lo += c * lo[j];
-      acc_hi += c * hi[j];
-    }
-    uint64_t lo64 = acc_lo + (acc_hi << 32);
-    uint64_t hi64 = (acc_hi >> 32) + (lo64 < acc_lo ? 1 : 0);
-    s[i] = gl::reduce128(hi64, lo64);
-  }
-}
-
-__device__ __forceinline__ void full_round(uint64_t s[WIDTH], int r) {
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) s[j] = sbox(gl::add(s[j], RC[r * WIDTH + j]));
-  mds(s);
-}
-
-__device__ __forceinline__ void partial_round(uint64_t s[WIDTH], int r) {
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) s[j] = gl::add(s[j], RC[r * WIDTH + j]);
-  s[0] = sbox(s[0]);
-  mds(s);
-}
 
 __global__ void __launch_bounds__(THREADS)
 permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                int64_t n) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (i >= n) return;
-  const uint64_t* src = in + i * WIDTH;
-  uint64_t s[WIDTH];
-  // Any u64 input permutes like its canonical value (the reference's first
-  // full round is congruence-preserving), so reduce it once here.
+  const uint64_t* src = in + i * pos::WIDTH;
+  uint64_t s[pos::WIDTH];
 #pragma unroll
-  for (int j = 0; j < WIDTH; ++j) s[j] = gl::canonical(src[j]);
+  for (int j = 0; j < pos::WIDTH; ++j) s[j] = src[j];
+  pos::permute_dense(s);
+  uint64_t* dst = out + i * pos::WIDTH;
 #pragma unroll
-  for (int r = 0; r < HALF_F; ++r) full_round(s, r);
-#pragma unroll 2
-  for (int r = HALF_F; r < HALF_F + ROUNDS_P; ++r) partial_round(s, r);
-#pragma unroll
-  for (int r = HALF_F + ROUNDS_P; r < N_ROUNDS; ++r) full_round(s, r);
-  uint64_t* dst = out + i * WIDTH;
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) dst[j] = s[j];
+  for (int j = 0; j < pos::WIDTH; ++j) dst[j] = s[j];
 }
 
 }  // namespace
 
-// Copy the constant set into __constant__ memory: rc holds the 360 round
-// constants (30 rounds x 12 lanes), mds the 12x12 coefficients row-major,
-// each below 2^16. Returns a cudaError_t code.
+// Copy the constant set into __constant__ memory (pos::set_constants).
 extern "C" int poseidon_gl_set_constants(const uint64_t* rc,
-                                         const uint32_t* mds) {
-  cudaError_t err = cudaMemcpyToSymbol(RC, rc, sizeof(RC));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemcpyToSymbol(MDS, mds, sizeof(MDS));
-  return static_cast<int>(err);
+                                         const uint32_t* mds,
+                                         const uint32_t* circ,
+                                         const uint32_t* diag) {
+  return pos::set_constants(rc, mds, circ, diag);
 }
 
 // out[i] = permute(in[i]) for n row-major (n, 12) uint64 states, launched on

@@ -22,7 +22,10 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 
 # kernel name -> its source under csrc/
-KERNELS = {"poseidon_gl": "poseidon_gl.cu"}
+KERNELS = {"poseidon_gl": "poseidon_gl.cu",
+           "poseidon_gl_blocked": "poseidon_gl_blocked.cu",
+           "poseidon_gl_soa": "poseidon_gl_soa.cu",
+           "poseidon_gl_mma": "poseidon_gl_mma.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -3,7 +3,7 @@ prove each one with its own eSTARK.
 
 Counterpart of `zkevm_prover_tpu/executor/executor.py` (reference:
 src/executor/executor.cpp:487-610). Only the SMs in `_SM_MODULES` are ported
-so far; an action kind of any other SM raises NotImplementedError.
+so far; storage, keccak, sha256 and hashp actions raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from .. import resolve_device
 from ..stark.prover import StarkProver
 from ..stark.setup import StarkSetup
 from ..stark.verifier import verify
-from .sm import poseidon_g
+from .sm import (arith, binary, climb_key, mem_align, memory, padding_pg,
+                 poseidon_g)
 
 
 @dataclasses.dataclass
@@ -37,10 +38,14 @@ class BatchActions:
     hashp: list = dataclasses.field(default_factory=list)
 
 
-_SM_MODULES = {"poseidon_g": poseidon_g}
+_SM_MODULES = {"binary": binary, "memory": memory, "arith": arith,
+               "mem_align": mem_align, "poseidon_g": poseidon_g,
+               "padding_pg": padding_pg, "climb_key": climb_key}
 
-# per-SM trace degree (the JAX package's defaults for the ported SMs)
-DEFAULT_BITS = {"poseidon_g": 9}
+# per-SM trace degree (the JAX package's defaults for the ported SMs); binary's
+# nibble-semantics table needs 2816 rows
+DEFAULT_BITS = {"binary": 13, "memory": 9, "arith": 9, "mem_align": 9,
+                "poseidon_g": 9, "padding_pg": 9, "climb_key": 10}
 
 
 class Executor:
@@ -58,9 +63,22 @@ class Executor:
         self.device = resolve_device(device)
         self._provers: dict[str, StarkProver] = {}
 
+    def binary_slice_bits(self) -> int:
+        """Largest slice width whose semantics table fits the binary domain
+        (28·4^s rows): 4-bit nibbles from 2^13 up, 2-bit below."""
+        n = 1 << self.n_bits["binary"]
+        s = 1
+        while 28 * (4 ** (s + 1)) <= n and s < 4:
+            s += 1
+        return s
+
     def _prover(self, name: str) -> StarkProver:
         if name not in self._provers:
-            air = _SM_MODULES[name].build_air(self.n_bits[name])
+            if name == "binary":
+                air = binary.build_air(self.n_bits[name],
+                                       self.binary_slice_bits())
+            else:
+                air = _SM_MODULES[name].build_air(self.n_bits[name])
             setup = StarkSetup(air, n_queries=self.n_queries, fri_fold_bits=2)
             self._provers[name] = StarkProver(setup, device=self.device)
         return self._provers[name]
@@ -72,10 +90,50 @@ class Executor:
                 raise NotImplementedError(
                     f"{field.name} actions: that state machine is not ported")
         out = {}
+        nb = self.n_bits
+        if actions.binary:
+            out["binary"] = binary.execute(actions.binary, nb["binary"],
+                                           self.binary_slice_bits())
+        if actions.memory:
+            out["memory"], _ = memory.execute(actions.memory, nb["memory"])
+        if actions.arith:
+            out["arith"] = arith.execute(actions.arith, nb["arith"])
+        if actions.mem_align:
+            out["mem_align"], _ = mem_align.execute(actions.mem_align,
+                                                    nb["mem_align"])
         if actions.poseidon_g:
-            out["poseidon_g"] = poseidon_g.execute(
-                actions.poseidon_g, self.n_bits["poseidon_g"])
+            out["poseidon_g"] = poseidon_g.execute(actions.poseidon_g,
+                                                   nb["poseidon_g"])
+        if actions.padding_pg:
+            out["padding_pg"], _ = padding_pg.execute(actions.padding_pg,
+                                                      nb["padding_pg"])
+        if actions.climb_key:
+            out["climb_key"] = climb_key.execute(actions.climb_key,
+                                                 nb["climb_key"])
         return out
+
+    def counters(self, actions: BatchActions) -> dict[str, int]:
+        """SM usage counters (reference: batch resource counters,
+        main.cpp:193-216) — drive upstream batch-capacity limits."""
+        nb = self.n_bits
+        return {
+            "binary": len(actions.binary),
+            "binary_capacity": (1 << nb["binary"])
+            // binary.rows_per_op(self.binary_slice_bits()),
+            "memory": len(actions.memory),
+            "memory_capacity": 1 << nb["memory"],
+            "arith": len(actions.arith),
+            "arith_capacity": (1 << nb["arith"]) // arith.GROUP,
+            "mem_align": len(actions.mem_align),
+            "mem_align_capacity": (1 << nb["mem_align"]) // mem_align.GROUP,
+            "poseidon_g": len(actions.poseidon_g),
+            "poseidon_g_capacity": (1 << nb["poseidon_g"]) // poseidon_g.GROUP,
+            "padding_pg": len(actions.padding_pg),
+            "padding_pg_capacity": (1 << nb["padding_pg"]) // padding_pg.GROUP,
+            "climb_key": len(actions.climb_key),
+            "climb_key_capacity": (1 << nb["climb_key"])
+            // (64 // climb_key.params_for(nb["climb_key"])[0]),
+        }
 
     def prove_all(self, actions: BatchActions) -> dict[str, object]:
         """Prove every active SM; returns {name: (prover, proof)}."""

@@ -134,9 +134,19 @@ def execute(actions: list[dict], n_bits: int) -> np.ndarray:
         st = [int(v) % P for v in act["state"]]
         assert len(st) == W
         inputs[a_idx] = st
-    C = pos.round_constants("cpu")
     tr = np.zeros((n // GROUP, GROUP, 4 * W), dtype=np.uint64)
     tr[:, :, 3 * W:] = inputs[:, None, :]  # IN held through the group
+    # final state row (ACT=0: no constraints)
+    tr[:, ROUNDS, :W] = fill_rounds(tr, inputs)
+    return tr.reshape(n, 4 * W)
+
+
+def fill_rounds(tr: np.ndarray, inputs: np.ndarray) -> np.ndarray:
+    """Write rows 0..29 (S, T, SB) of each (G, GROUP, >= 36) group in `tr`
+    for the (G, 12) canonical input states, all groups at once, round by
+    round through the port's field ops on host tensors; returns the (G, 12)
+    permutation outputs."""
+    C = pos.round_constants("cpu")
     st = gl.from_u64(inputs, "cpu")
     for r in range(ROUNDS):
         x = gl.add(st, C[r])
@@ -145,8 +155,7 @@ def execute(actions: list[dict], n_bits: int) -> np.ndarray:
         out_sb = sbox if _full_round(r) else torch.cat([sbox[:, :1], x[:, 1:]], 1)
         tr[:, r, :3 * W] = gl.to_u64(torch.cat([st, cube, out_sb], 1))
         st = pos.mds(out_sb)
-    tr[:, ROUNDS, :W] = gl.to_u64(st)  # final state row (ACT=0: no constraints)
-    return tr.reshape(n, 4 * W)
+    return gl.to_u64(st)
 
 
 def result(action: dict) -> list[int]:

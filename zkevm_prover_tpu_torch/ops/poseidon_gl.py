@@ -2,8 +2,9 @@
 
 Counterpart of `zkevm_prover_tpu/ops/poseidon_gl.py`. States are (..., 12)
 int64 tensors. `permute` dispatches on the device: a CUDA tensor goes to the
-hand-written kernel (`ops/poseidon_cuda.py`), a CPU tensor to `permute_plain`,
-the same permutation in plain torch ops. `permute_plain` runs on any device;
+hand-written kernel of `poseidon_cuda.MODE` (`ops/poseidon_cuda.py`), a CPU
+tensor to `permute_plain`, the same permutation in plain torch ops, whatever
+the mode. `permute_plain` runs on any device;
 the tests and `chip_smoke.py` hold the kernel against it.
 """
 
@@ -124,9 +125,9 @@ def permute_plain(state):
 def permute(state):
     """Poseidon permutation over (H, 12) int64 states.
 
-    A CUDA tensor goes to the CUDA kernel (every batch size; it raises for a
-    constant set whose MDS is not small-integer), a CPU tensor to
-    `permute_plain`."""
+    A CUDA tensor goes to the CUDA kernel of `poseidon_cuda.MODE` (every
+    batch size; it raises for a constant set whose MDS the mode cannot take),
+    a CPU tensor to `permute_plain`, whatever the mode."""
     if state.is_cuda:
         from . import poseidon_cuda
 

@@ -15,6 +15,11 @@ one bit at a time, each cut printed with its reason):
     2^10, 2^16, 2^20 and 2^22 states beside the plain time and the bound
     (`poseidon_bound`: the S-boxes' IMADs, the MDS on the tensor cores);
     then the pinned r05 LDE checksum (2^23 -> 2^24 x 4, plain torch);
+ 3b. the fused Merkle commit (`poseidon_cuda.merkle_levels`, the second
+    kernel of csrc/poseidon_gl.cu) bit for bit against the plain tree
+    (`merkle.merkelize_levels_plain`) at 2^22 x 48 and against the chunked
+    tree through kernel 1 at 2^21 x 189 (arith's stage-1 section), every
+    level; fused, chunked and plain timed beside `merkle_bound`;
  4. small proofs on the card against the port's CPU proofs, byte for byte:
     the four toy AIRs, PoseidonG at 2^8, and the mixed batch of all seven
     ported SMs at 2^9 through `Executor.prove_all`;
@@ -23,17 +28,21 @@ one bit at a time, each cut printed with its reason):
     less one group (`executor.examples.full_batch`), each executed and
     proved through `Executor.execute` / `prove_traces` (the halves of
     `prove_all`), then `verify_all`, and a tampered proof of each SM must be
-    rejected. The kernel launch counters are zeroed just before and read
-    just after;
+    rejected. The kernel launch counters are zeroed just before the proofs
+    and read just after `verify_all`: the fused Merkle kernel (every commit)
+    and the mxu96 permutation (the verifier's paths) must both have run,
+    and no other mode's kernel;
  6. every other mode on the path: mem_align's full-width trace re-proved
-    under each mode, counters zeroed before and read after; each proof must
-    equal the mxu96 proof byte for byte;
+    under each mode, counters zeroed before and read after: under mxu96 the
+    commits go through the fused Merkle kernel, under every other mode
+    through that mode's permutation and never the fused kernel; each proof
+    must equal the mxu96 proof byte for byte;
  7. a steady re-prove of arith (the widest AIR), timed alone and under
     torch.profiler (device busy time, idle share, the Poseidon kernels'
     share, the top device ops);
- 8. a kernels line (JSON: each mode's kernel, its launches on the path, its
-    time, its bound and its plain version's time) and a final line
-    {"ok": true, "device": {...}}.
+ 8. a kernels line (JSON: each mode's kernel and the fused Merkle kernel,
+    its launches on the path, its time, its bound and its plain version's
+    time) and a final line {"ok": true, "device": {...}}.
 
 It needs the CUDA toolkit (nvcc) and one card; without CUDA it exits
 nonzero before printing anything.
@@ -71,14 +80,30 @@ POSEIDON_IMAD = 118 * (2 * 3 + 2 * 4) * 2
 POSEIDON_TENSOR_OPS = (8 * 144 + 22 * 23) * 8 * 2
 
 
+def _bound(perms: int, n_bytes: int) -> tuple[float, str]:
+    ops_s = max(perms * POSEIDON_IMAD / IMAD_PER_S,
+                perms * POSEIDON_TENSOR_OPS / INT8_OPS_PER_S)
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
 def poseidon_bound(h: int) -> tuple[float, str]:
     """(least ms, what bounds it) for h permutations: each state read and
     written once against the slower unit's operations."""
-    ops_s = max(h * POSEIDON_IMAD / IMAD_PER_S,
-                h * POSEIDON_TENSOR_OPS / INT8_OPS_PER_S)
-    bytes_s = h * 12 * 8 * 2 / HBM_BYTES_PER_S
-    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
-                                       else "bytes")
+    return _bound(h, h * 12 * 8 * 2)
+
+
+def merkle_perms(h: int, w: int) -> int:
+    """Permutations in the Merkle tree of a (h, w) source: ceil(w / 8) per
+    row when w > 4 (narrower rows are copied), and h - 1 for the levels."""
+    return h * (-(-w // 8) if w > 4 else 0) + h - 1
+
+
+def merkle_bound(h: int, w: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for the tree of a (h, w) source: its
+    permutations against the source read once and 2h - 1 digests written."""
+    return _bound(merkle_perms(h, w), h * w * 8 + 32 * (2 * h - 1))
 
 
 # artifacts/bench/measure_baseline_r05.json: exact field results
@@ -201,6 +226,63 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
     return entries
 
 
+def check_merkle(torch, gl, pcu) -> dict:
+    """The fused Merkle commit on the card: every level bit for bit against
+    the plain tree at 2^22 x 48 and against the chunked tree through kernel
+    1 at 2^21 x 189, each timed; returns the kernels-line entry (without
+    `launches`), at 2^22 x 48."""
+    from zkevm_prover_tpu_torch.ops import merkle
+
+    def chunked(src):
+        return merkle.merkelize_levels_chunked(src, pcu.permute_mxu96)
+
+    entry = None
+    for (bits, w), against in (((22, 48), "plain"), ((21, 189), "chunked")):
+        h = 1 << bits
+        src = gl.from_u64(np.random.default_rng(bits + w).integers(
+            0, gl.P, size=(h, w), dtype=np.uint64), "cuda")
+        before = pcu.launches["merkle"]
+        fused = pcu.merkle_levels(src)
+        torch.cuda.synchronize()
+        plan = pcu.merkle_plan(h, w)
+        if pcu.launches["merkle"] - before != len(plan):
+            _fail(f"merkle 2^{bits} x {w}: {pcu.launches['merkle'] - before} "
+                  f"launches, plan {plan}")
+        ref = (merkle.merkelize_levels_plain if against == "plain"
+               else chunked)(src)
+        if len(fused) != len(ref) or not all(
+                torch.equal(a, b) for a, b in zip(fused, ref)):
+            _fail(f"merkle 2^{bits} x {w}: fused levels != {against} levels")
+        del fused, ref
+        fused_ms = _time_ms(lambda: pcu.merkle_levels(src), reps=5)
+        chunked_ms = _time_ms(lambda: chunked(src), reps=3)
+        plain_ms = (_time_ms(lambda: merkle.merkelize_levels_plain(src),
+                             reps=1) if against == "plain" else None)
+        bound_ms, bound_by = merkle_bound(h, w)
+        plain_txt = f"{plain_ms:.2f}" if plain_ms is not None else "not timed"
+        _log(f"merkle 2^{bits} x {w}: fused == {against} on every level; "
+             f"fused {fused_ms:.4f} ms ({len(plan)} launches, "
+             f"{100 * bound_ms / fused_ms:.1f} % of bound), chunked through "
+             f"kernel 1 {chunked_ms:.4f} ms, plain {plain_txt} ms; bound "
+             f"{bound_ms:.4f} ms ({bound_by}, {merkle_perms(h, w)} "
+             "permutations)")
+        if fused_ms >= chunked_ms:
+            _fail(f"merkle 2^{bits} x {w}: fused {fused_ms:.4f} ms is not "
+                  f"faster than chunked {chunked_ms:.4f} ms")
+        if entry is None:
+            entry = {
+                "name": "poseidon_gl_merkle", "route": "cuda",
+                "source": "zkevm_prover_tpu_torch/csrc/poseidon_gl.cu",
+                "replaces": "zkevm_prover_tpu/ops/merkle.py:39",
+                "max_abs_err": 0, "ms": fused_ms, "plain_ms": plain_ms,
+                "chunked_ms": chunked_ms, "shape": [h, w],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+        del src
+        torch.cuda.empty_cache()
+    return entry
+
+
 def check_ntt(torch, gl) -> None:
     """The LDE (plain torch on the card) at the reference's unit, 2^23 -> 2^24
     rows x 4 columns, against the pinned r05 checksum."""
@@ -303,8 +385,9 @@ def _prove_sm(torch, ex, name, actions):
 
 
 def run_batch(torch, pcu, bits: int, arith_bits: int) -> dict:
-    """The co-processor batch at full width under MODE mxu96; returns
-    {name: (trace, prover, proof)} and the mxu96 kernel's launches in it."""
+    """The co-processor batch at full width under MODE mxu96, proved and
+    verified; returns {name: (trace, prover, proof)} and the launches of
+    each kernel in it."""
     import gc
 
     from zkevm_prover_tpu_torch.executor import Executor, examples
@@ -354,19 +437,25 @@ def run_batch(torch, pcu, bits: int, arith_bits: int) -> dict:
         _log(f"batch {name} phases (s): " + json.dumps(
             {k: round(v, 4) for k, v in prover.phase_times.items()}))
     torch.cuda.synchronize()
-    launches = dict(pcu.launches)
     _log(f"batch: {time.perf_counter() - t_batch:.1f} s in all; peak device "
-         f"memory {peak:.2f} GiB; kernel launches {json.dumps(launches)}")
-    if launches["mxu96"] == 0:
-        _fail("the mxu96 kernel was not launched on the main path")
-    if any(n for mode, n in launches.items() if mode != "mxu96"):
-        _fail(f"a kernel other than mxu96 ran under MODE mxu96: {launches}")
+         f"memory {peak:.2f} GiB; kernel launches in the proofs "
+         f"{json.dumps(pcu.launches)}")
 
     t0 = time.perf_counter()
     proofs = {name: (prover, proof) for name, (_, prover, proof) in out.items()}
     if not ex.verify_all(proofs):
         _fail("verify_all rejected the batch")
-    _log(f"batch verify_all: true ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.synchronize()
+    launches = dict(pcu.launches)
+    _log(f"batch verify_all: true ({time.perf_counter() - t0:.2f} s); kernel "
+         f"launches in proofs + verify {json.dumps(launches)}")
+    if launches["merkle"] == 0:
+        _fail("the fused Merkle kernel was not launched on the main path")
+    if launches["mxu96"] == 0:
+        _fail("the mxu96 kernel was not launched on the main path")
+    if any(n for mode, n in launches.items() if mode not in ("mxu96",
+                                                             "merkle")):
+        _fail(f"another mode's kernel ran under MODE mxu96: {launches}")
     for name, (prover, proof) in proofs.items():
         bad = StarkProof.from_json(proof.to_json())
         bad.fri[0].queries[0][0].values[0] += 1
@@ -376,12 +465,13 @@ def run_batch(torch, pcu, bits: int, arith_bits: int) -> dict:
             continue
         _fail(f"a tampered {name} proof verified")
     _log(f"batch: a tampered proof of each of the {len(proofs)} SMs rejected")
-    return out, launches["mxu96"]
+    return out, launches
 
 
 def run_modes(torch, pcu, trace, prover, proof) -> dict:
     """mem_align's full-width trace re-proved under every mode, mxu96 first
-    for its steady time; returns each mode's launches in its prove."""
+    for its steady time; returns each mode's launches in its prove (under
+    mxu96, the fused Merkle kernel's)."""
     ref = proof.to_json()
     launches, times = {}, {}
     try:
@@ -393,10 +483,13 @@ def run_modes(torch, pcu, trace, prover, proof) -> dict:
             got = prover.prove(trace).to_json()
             torch.cuda.synchronize()
             times[mode] = time.perf_counter() - t0
-            launches[mode] = pcu.launches[mode]
+            # mxu96 commits through the fused kernel, the others chunked
+            key = "merkle" if mode == "mxu96" else mode
+            launches[mode] = pcu.launches[key]
             if launches[mode] == 0:
-                _fail(f"mode {mode}: its kernel was not launched")
-            if any(n for m, n in pcu.launches.items() if m != mode):
+                _fail(f"mode {mode}: its kernel ({key}) was not launched")
+            if any(n for m, n in pcu.launches.items()
+                   if m not in (key, mode)):
                 _fail(f"mode {mode}: another kernel ran: {pcu.launches}")
             if got != ref:
                 _fail(f"mode {mode}: mem_align proof differs from mxu96's")
@@ -437,7 +530,7 @@ def profile_prove(torch, name, prover, trace) -> None:
         _fail("torch.profiler recorded no device events")
     busy_s = sum(by_name.values()) / 1e9
     pos_s = sum(v for k, v in by_name.items()
-                if "permute" in k and "_kernel" in k) / 1e9
+                if ("permute" in k or "merkle" in k) and "_kernel" in k) / 1e9
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     top = [(k.removeprefix("void ").removeprefix("at::native::")[:110], v)
            for k, v in top]
@@ -503,10 +596,12 @@ def run(args, torch, child, cpu_path) -> int:
         _log(cuda_build.log_path(name).read_text().strip())
 
     entries = check_poseidon(torch, gl, pg, pcu)
+    entries["merkle"] = check_merkle(torch, gl, pcu)
     check_ntt(torch, gl)
     check_small_proofs(child, cpu_path)
     batch, main_launches = run_batch(torch, pcu, args.bits, args.arith_bits)
-    entries["mxu96"]["launches"] = main_launches
+    entries["mxu96"]["launches"] = main_launches["mxu96"]
+    entries["merkle"]["launches"] = main_launches["merkle"]
     trace, prover, proof = batch["mem_align"]
     for mode, n in run_modes(torch, pcu, trace, prover, proof).items():
         if mode != "mxu96":
@@ -516,8 +611,8 @@ def run(args, torch, child, cpu_path) -> int:
 
     _log("chip_smoke: done")
     print(json.dumps({"kernels": [entries[m] for m in
-                                  ("mxu96", "mxu24", "mxu", "blocked", "1d",
-                                   "2d")]}))
+                                  ("mxu96", "merkle", "mxu24", "mxu",
+                                   "blocked", "1d", "2d")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

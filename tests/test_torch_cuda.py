@@ -5,8 +5,9 @@ that has only PyTorch:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Each mode's kernel is held bit for bit against the plain torch permutation,
-and proofs made on the card against the port's CPU proofs (which the other
-test_torch_* files hold against the JAX package)."""
+the fused Merkle commit against the chunked plain tree, and proofs made on
+the card against the port's CPU proofs (which the other test_torch_* files
+hold against the JAX package)."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,8 @@ import torch
 
 from zkevm_prover_tpu_torch.executor import BatchActions, Executor
 from zkevm_prover_tpu_torch.ops import goldilocks as gl
+from zkevm_prover_tpu_torch.ops import merkle
+from zkevm_prover_tpu_torch.ops import poseidon_constants as pc
 from zkevm_prover_tpu_torch.ops import poseidon_cuda
 from zkevm_prover_tpu_torch.ops import poseidon_gl as pos
 from zkevm_prover_tpu_torch.stark import examples
@@ -70,6 +73,79 @@ def test_kernel_rejects_what_it_does_not_take(card):
         poseidon_cuda.permute(torch.zeros((12, 8), dtype=torch.int64,
                                           device=card).T)
     assert poseidon_cuda.launches == before
+
+
+def _same_levels(got, want):
+    assert [lv.shape for lv in got] == [lv.shape for lv in want]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("w", [1, 4, 5, 8, 9, 48, 189])
+@pytest.mark.parametrize("h", [1, 2, 256, 1 << 16])
+def test_fused_merkle_matches_plain(card, h, w):
+    src = gl.from_u64(np.random.default_rng(h * 1000 + w).integers(
+        0, gl.P, (h, w), dtype=np.uint64), card)
+    before = dict(poseidon_cuda.launches)
+    got = merkle.merkelize_levels(src)      # MODE mxu96: the fused kernel
+    after = dict(poseidon_cuda.launches)
+    assert after["merkle"] - before["merkle"] == len(
+        poseidon_cuda.merkle_plan(h, w))
+    assert {m: n for m, n in after.items() if m != "merkle"} == \
+        {m: n for m, n in before.items() if m != "merkle"}
+    _same_levels(got, merkle.merkelize_levels_plain(src))
+
+
+def test_fused_merkle_takes_strided_sources(card):
+    full = gl.from_u64(np.random.default_rng(5).integers(
+        0, 1 << 64, (256, 60), dtype=np.uint64), card)   # any u64
+    for src in (full[:, 7:56], full[:, 3:5], full.T.contiguous().T,
+                full[:, ::3]):
+        _same_levels(merkle.merkelize_levels(src),
+                     merkle.merkelize_levels_plain(src))
+
+
+def test_merkle_other_modes_take_the_chunked_path(card):
+    src = gl.from_u64(np.random.default_rng(6).integers(
+        0, gl.P, (64, 13), dtype=np.uint64), card)
+    want = merkle.merkelize_levels_plain(src)
+    mode = poseidon_cuda.MODE
+    try:
+        poseidon_cuda.MODE = "mxu24"
+        before = dict(poseidon_cuda.launches)
+        got = merkle.merkelize_levels(src)
+        assert poseidon_cuda.launches["merkle"] == before["merkle"]
+        assert poseidon_cuda.launches["mxu24"] > before["mxu24"]
+    finally:
+        poseidon_cuda.MODE = mode
+    _same_levels(got, want)
+
+
+def test_fused_merkle_rejects_what_it_does_not_take(card):
+    before = dict(poseidon_cuda.launches)
+    x = torch.zeros((8, 5), dtype=torch.int64, device=card)
+    with pytest.raises(TypeError):
+        poseidon_cuda.merkle_levels(x.to(torch.int32))
+    with pytest.raises(ValueError, match="power of two"):
+        poseidon_cuda.merkle_levels(x[:6])
+    with pytest.raises(ValueError):
+        poseidon_cuda.merkle_levels(x[:, 0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        poseidon_cuda.merkle_levels(x.cpu())
+    assert poseidon_cuda.launches == before
+
+
+def test_kernel_refuses_another_mds(card):
+    x = torch.zeros((8, 12), dtype=torch.int64, device=card)
+    try:
+        pc.load_constants("placeholder")
+        with pytest.raises(ValueError, match="compiled into"):
+            poseidon_cuda.permute_mxu96(x)
+        with pytest.raises(ValueError, match="compiled into"):
+            poseidon_cuda.merkle_levels(x)
+    finally:
+        pc.load_constants(None)
+    assert torch.equal(poseidon_cuda.permute_mxu96(x), pos.permute_plain(x))
 
 
 @pytest.mark.parametrize("name", ["fibonacci", "lookup", "permutation",

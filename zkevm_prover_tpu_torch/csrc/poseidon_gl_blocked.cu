@@ -12,21 +12,21 @@
 // 16-byte loads, neighbouring threads on neighbouring addresses (each load
 // instruction of a warp moves 512 contiguous bytes), then each thread takes
 // its own state out of shared memory into registers, permutes it (the dense
-// MDS of poseidon_common.cuh, as mxu96 does) and writes it back through
-// shared memory, and the block stores the tile with 16-byte stores. A state
-// sits at a stride of 13 u64 in shared memory, so the per-thread 8-byte reads
-// and writes of one lane fall into distinct banks. The mxu96 kernel instead
-// reads each state's 96 bytes straight from device memory per thread.
+// MDS of poseidon_tables.cuh) and writes it back through shared memory, and
+// the block stores the tile with 16-byte stores. A state sits at a stride
+// of 13 u64 in shared memory, so the per-thread 8-byte reads and writes of
+// one lane fall into distinct banks. The mxu96 kernel instead reads each
+// state's 96 bytes straight from device memory per thread.
 //
-// What bounds it on the H100: integer multiply throughput, as for mxu96 (the
-// same arithmetic per state); the staging only changes how the 192 bytes per
-// state move. The wrapper pads the batch to the TPU kernel's multiple
-// (8 x 2048 states), so the kernel has no ragged tile.
+// What bounds it on the H100: integer multiply throughput (the dense MDS's
+// widening multiply-adds and the canonical S-box); the staging only changes
+// how the 192 bytes per state move. The wrapper pads the batch to the TPU
+// kernel's multiple (8 x 2048 states), so the kernel has no ragged tile.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "poseidon_common.cuh"
+#include "poseidon_tables.cuh"
 
 namespace {
 

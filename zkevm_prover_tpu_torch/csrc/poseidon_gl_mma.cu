@@ -38,7 +38,7 @@
 
 #include <cstdint>
 
-#include "poseidon_common.cuh"
+#include "poseidon_tables.cuh"
 
 namespace {
 
@@ -262,7 +262,8 @@ permute_mma_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
       if constexpr (!kMxu24) {
         s[j] = gl::reduce128(hi, lo);
       } else {
-        s[j] = pos::reduce128_lazy(hi, lo);
+        s[j] = gl::reduce_words(gl::lo32(lo), gl::hi32(lo), gl::lo32(hi),
+                                  gl::hi32(hi));
       }
     }
   }

@@ -26,7 +26,7 @@
 
 #include <cstdint>
 
-#include "poseidon_common.cuh"
+#include "poseidon_tables.cuh"
 
 namespace {
 

@@ -6,15 +6,24 @@ keyed by a hash of every file in `csrc/` and of the flags, so an edited
 source is rebuilt and an unchanged one is built once. Nothing is built when
 a module is imported: `load` builds at the first launch, and `build` starts
 one nvcc per kernel, all at once, and waits for them together.
+`sass_counts` reads a built library's SASS with cuobjdump:
+
+    python -m zkevm_prover_tpu_torch.cuda_build [NAME | LIBRARY.so ...]
+
+builds the named kernels (default: all) and prints nvcc's register and
+spill log and the SASS instruction counts of each kernel in each library.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
@@ -31,13 +40,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-def nvcc() -> str:
+def _tool(name: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (cuda_home and os.path.join(cuda_home, "bin", "nvcc"),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+    for cand in (cuda_home and os.path.join(cuda_home, "bin", name),
+                 shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA "
+                       "toolkit")
+
+
+def nvcc() -> str:
+    return _tool("nvcc")
 
 
 def _key() -> str:
@@ -90,3 +104,81 @@ def build(names=None) -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+# SASS opcode classes counted by sass_counts (an instruction counts in each
+# class whose prefix its opcode has; "all" counts every instruction)
+SASS_CLASSES = ("IMAD", "IMAD.WIDE", "IMAD.HI", "IMAD.X", "IADD3", "ISETP",
+                "SEL", "LOP3", "SHF", "LDC", "LEA", "MOV", "BRA", "BAR",
+                "LDG", "STG", "LDS", "STS")
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_counts(path: Path) -> dict[str, dict]:
+    """Per kernel of the built library (cuobjdump -sass): the count of each
+    SASS_CLASSES prefix and of all instructions ("counts"), its loops (a
+    backward branch and the code it jumps back over) and its guarded
+    blocks (a predicated forward branch and the code it skips, kept only
+    where that code holds a loop), each as (first, last instruction index,
+    size, the span's counts). A span's code runs once per trip or pass, so
+    a kernel's per-thread instruction count is its counts with each span
+    weighted by its trips."""
+    out = subprocess.run([_tool("cuobjdump"), "-sass", str(path)],
+                         capture_output=True, text=True, check=True).stdout
+    kernels: dict[str, dict] = {}
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        insts = [(int(a, 16), pred, op, rest) for a, pred, op, rest in
+                 _SASS_LINE.findall(part)]
+        index = {addr: i for i, (addr, *_) in enumerate(insts)}
+        loops, guarded = [], []
+        for i, (addr, pred, op, rest) in enumerate(insts):
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if not (op.startswith("BRA") and m):
+                continue
+            to = index.get(int(m.group(1), 16))
+            if to is not None and to <= i:
+                loops.append((to, i, i - to + 1, _count(insts[to:i + 1])))
+            elif to is not None and pred:
+                guarded.append((i + 1, to - 1, to - i - 1,
+                                _count(insts[i + 1:to])))
+        guarded = [g for g in guarded
+                   if any(g[0] <= lp[0] and lp[1] <= g[1] for lp in loops)]
+        kernels[name] = {"counts": _count(insts), "loops": loops,
+                         "guarded": guarded}
+    return kernels
+
+
+def _count(insts) -> dict:
+    """SASS_CLASSES counts, "all", and "op:BASE" for each base opcode."""
+    counts = collections.Counter()
+    for _, _, op, _ in insts:
+        if op == "NOP":
+            continue
+        counts["all"] += 1
+        counts["op:" + op.split(".")[0]] += 1
+        for cls in SASS_CLASSES:
+            if op == cls or op.startswith(cls + "."):
+                counts[cls] += 1
+    return dict(counts)
+
+
+def main(argv) -> int:
+    for arg in argv or list(KERNELS):
+        if arg.endswith(".so"):
+            path = Path(arg)
+        else:
+            path = build([arg])[arg]
+            print(log_path(arg).read_text().strip())
+        for kernel, info in sass_counts(path).items():
+            print(f"{path.name} {kernel}: {info['counts']}")
+            for kind in ("loops", "guarded"):
+                for first, last, size, counts in info[kind]:
+                    print(f"  {kind[:-1] if kind == 'loops' else kind} "
+                          f"[{first}, {last}] {size} instructions: {counts}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

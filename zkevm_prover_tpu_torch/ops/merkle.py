@@ -1,9 +1,14 @@
 """Poseidon Merkle trees over Goldilocks (arity 2) on the device.
 
-Counterpart of `zkevm_prover_tpu/ops/merkle.py`: the whole tree is a chain
-of batched Poseidon levels on the device (every permutation goes through
-`poseidon_gl.permute`, so through the CUDA kernel on the card); proofs are
-small gathers copied to the host.
+Counterpart of `zkevm_prover_tpu/ops/merkle.py`, whose whole tree is one
+XLA program. Here a CUDA source under `poseidon_cuda.MODE` "mxu96" is
+committed by the fused kernel of csrc/poseidon_gl.cu
+(`poseidon_cuda.merkle_levels`: row sponge and tree levels in a few
+launches); under any other mode it takes the chunked path, one
+`poseidon_gl.permute` launch per 8-column chunk and per level, through that
+mode's kernel; a CPU source takes the chunked path through
+`permute_plain`, which is also the plain twin of the fused kernel
+(`merkelize_levels_plain`). Proofs are small gathers copied to the host.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from . import goldilocks as gl
 from . import poseidon_constants as pc
+from . import poseidon_cuda
 from . import poseidon_gl as pos
 from . import refmodel as rm
 
@@ -24,12 +30,28 @@ HASH_SIZE = pos.HASH_SIZE
 def merkelize_levels(source):
     """All tree levels for a (H, W) source; H must be a power of 2.
 
-    Returns [leaves (H,4), ..., root_level (1,4)]."""
+    Returns [leaves (H,4), ..., root_level (1,4)]: through the fused kernel
+    for a CUDA source under mode mxu96, else chunked through
+    `poseidon_gl.permute` (the mode's kernel, or plain on the CPU)."""
+    if source.is_cuda and poseidon_cuda.MODE == "mxu96":
+        return poseidon_cuda.merkle_levels(source)
+    return merkelize_levels_chunked(source, pos.permute)
+
+
+def merkelize_levels_plain(source):
+    """The same levels chunked through `poseidon_gl.permute_plain`, on any
+    device: the fused kernel's plain twin."""
+    return merkelize_levels_chunked(source, pos.permute_plain)
+
+
+def merkelize_levels_chunked(source, perm):
+    """The levels as one `perm` call per 8-column chunk of the leaf sponge
+    and one per tree level."""
     h = source.shape[0]
     assert h & (h - 1) == 0, "height must be a power of two"
-    levels = [pos.linear_hash(source)]
+    levels = [pos.linear_hash(source, perm)]
     while levels[-1].shape[0] > 1:
-        levels.append(pos.hash_level(levels[-1]))
+        levels.append(pos.hash_level(levels[-1], perm))
     return levels
 
 

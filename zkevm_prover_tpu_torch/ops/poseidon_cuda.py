@@ -20,6 +20,13 @@ kernel takes and raises on anything else, and `permute` raises on an
 unknown mode: nothing falls back to another mode or to the plain version.
 Each kernel's note says what TPU kernel it replaces and what bounds it; the
 plain twin of all of them is `poseidon_gl.permute_plain`.
+
+The mxu96 library also holds the fused Merkle commit, `merkle_levels`
+(`ops/merkle.py` takes it under mode mxu96; its plain twin is
+`merkle.merkelize_levels_plain`), counted in `launches["merkle"]`, apart
+from the modes. That library has the reference MDS compiled in and runs on
+tables derived here (`fold_constants`, `sparse_constants`); it raises on a
+constant set with another MDS.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ MODES = ("1d", "2d", "blocked", "mxu", "mxu24", "mxu96")
 MODE = "mxu96"
 
 launches = {mode: 0 for mode in MODES}
+launches["merkle"] = 0
 
 PAD = {"1d": 512, "2d": 512, "blocked": 8 * 2048, "mxu": 1024,
        "mxu24": 2 * 1024, "mxu96": 1}
@@ -48,8 +56,9 @@ LIBRARY = {"1d": "poseidon_gl_soa", "2d": "poseidon_gl_soa",
            "mxu24": "poseidon_gl_mma", "mxu96": "poseidon_gl"}
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 _ARGTYPES = {  # (permute, set_constants) argument types of each library
-    "poseidon_gl": ([_P, _P, ctypes.c_longlong, _P], [_P] * 4),
+    "poseidon_gl": ([_P, _P, _LL, _P], [_P] * 6),
     "poseidon_gl_blocked": ([_P, _P, ctypes.c_longlong, _P], [_P] * 4),
     "poseidon_gl_soa": ([_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
                         [_P] * 4),
@@ -59,6 +68,95 @@ _ARGTYPES = {  # (permute, set_constants) argument types of each library
 
 _libs: dict = {}
 _constants_source: dict = {}
+
+
+# poseidon_gl_merkle(src, row_stride, col_stride, width, tree, h, base,
+#                    leaves, nodes, threads, more, chunk, stream)
+_MERKLE_ARGTYPES = [_P, _LL, _LL, _LL, _P, _LL, ctypes.c_int, ctypes.c_int,
+                    _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+MERKLE_THREADS = 128   # csrc/poseidon_gl.cu THREADS
+_MDS_MISMATCH = -1     # csrc/poseidon_gl.cu POSEIDON_GL_MDS_MISMATCH
+
+
+def fold_constants(C, M):
+    """The mxu96 kernel's constant schedule, from the round constants C
+    (30, 12) and the MDS M (12, 12), in exact field arithmetic: (rc0, fold)
+    as uint64, rc0 (12,) added before round 0 and fold (30, 12) added after
+    round r's MDS. fold[r] is C[r + 1], except that every partial round keeps
+    only its lane-0 constant: the rest, u, is pushed through that round's
+    MDS into the next round's constants (M (S(x + a e0) + u) = M S(x + a e0)
+    + M u, since the S-box touches lane 0 alone), down to the first full
+    round after the partial ones. fold[r, 1:] is zero for r in 4..24, and
+    fold[29] is zero."""
+    p, w = pc.P, pg.WIDTH
+    C = [[int(v) for v in row] for row in C]
+    M = [[int(v) for v in row] for row in M]
+    half = pc.ROUNDS_F // 2
+    for r in range(half, half + pc.ROUNDS_P):
+        u = [0] + C[r][1:]
+        C[r] = [C[r][0]] + [0] * (w - 1)
+        C[r + 1] = [(C[r + 1][i] + sum(M[i][j] * u[j] for j in range(w))) % p
+                    for i in range(w)]
+    fold = C[1:] + [[0] * w]
+    return (np.array(C[0], dtype=np.uint64),
+            np.array(fold, dtype=np.uint64))
+
+
+def _mat_inv(a: list, p: int) -> list:
+    """Inverse of the square matrix a (Python ints) mod p, Gauss-Jordan."""
+    n = len(a)
+    m = [[int(v) % p for v in row] + [int(i == j) for j in range(n)]
+         for i, row in enumerate(a)]
+    for c in range(n):
+        piv = next(r for r in range(c, n) if m[r][c])
+        m[c], m[piv] = m[piv], m[c]
+        inv = pow(m[c][c], p - 2, p)
+        m[c] = [v * inv % p for v in m[c]]
+        for r in range(n):
+            if r != c and m[r][c]:
+                f = m[r][c]
+                m[r] = [(x - f * y) % p for x, y in zip(m[r], m[c])]
+    return [row[n:] for row in m]
+
+
+def _mat_mul(a: list, b: list, p: int) -> list:
+    return [[sum(x * y for x, y in zip(row, col)) % p for col in zip(*b)]
+            for row in a]
+
+
+def sparse_constants(M):
+    """The sparse factorisation of the 22 partial rounds' MDS (the Poseidon
+    paper's appendix B), from the last partial round back: each round's
+    matrix B = [[b00, b0], [bc, B^]] is B'' B' with B' = [[1, 0], [0, B^]]
+    acting on lanes 1..11 only, so B' commutes with the lane-0 S-box and
+    with the lane-0 constants (fold_constants leaves no other in these
+    rounds) and moves into the round before: B_{r-1} = B'_r M. What is
+    left of each round is B'' = [[m00, w], [v, I]]. Returns (pre, w, v):
+    pre (11, 11) the first partial round's B^, which lands on the last full
+    round (applied to lanes 1..11 after its MDS); w, v (22, 11) per partial
+    round, in order, as uint64. B'' keeps m00 = M[0][0] in every round."""
+    p, n = pc.P, pg.WIDTH
+    M = [[int(x) % p for x in row] for row in M]
+    ws, vs = [], []
+    B = M
+    for _ in range(pc.ROUNDS_P):
+        hat = [row[1:] for row in B[1:]]
+        hat_inv = _mat_inv(hat, p)
+        # B'' = B B'^-1: row 0 = [b00, b0 hat^-1], rows 1.. = [bc, I]
+        w = [sum(B[0][1 + k] * hat_inv[k][j] for k in range(n - 1)) % p
+             for j in range(n - 1)]
+        v = [B[1 + j][0] for j in range(n - 1)]
+        assert B[0][0] == M[0][0]
+        ws.append(w)
+        vs.append(v)
+        prime = [[int(i == j) if i == 0 or j == 0 else hat[i - 1][j - 1]
+                  for j in range(n)] for i in range(n)]
+        B = _mat_mul(prime, M, p)
+    pre = hat   # B^ of the first partial round, left for the full round
+    # ws / vs were made from the last round back
+    return (np.array(pre, dtype=np.uint64),
+            np.array(ws[::-1], dtype=np.uint64),
+            np.array(vs[::-1], dtype=np.uint64))
 
 
 def circ_diag(coeffs: np.ndarray):
@@ -102,10 +200,16 @@ def _host_tables(source: str):
     if coeffs is None:
         raise ValueError("the CUDA Poseidon kernels need a small-integer MDS "
                          f"(<= 2^16); constant set {source!r} has none")
-    C, _ = pg.tables_host(source)
+    C, M = pg.tables_host(source)
     cd = circ_diag(coeffs)
     circ, diag = cd if cd is not None else ([0] * pg.WIDTH, [0] * pg.WIDTH)
+    rc0, fold = fold_constants(C, M)
+    pre, w, v = sparse_constants(M)
     return {"rc": np.ascontiguousarray(C.reshape(-1), dtype=np.uint64),
+            "rc0": rc0, "fold": np.ascontiguousarray(fold.reshape(-1)),
+            "sp_pre": np.ascontiguousarray(pre.reshape(-1)),
+            "sp_w": np.ascontiguousarray(w.reshape(-1)),
+            "sp_v": np.ascontiguousarray(v.reshape(-1)),
             "mds": np.ascontiguousarray(coeffs, dtype=np.uint32),
             "circ": np.array(circ, dtype=np.uint32),
             "diag": np.array(diag, dtype=np.uint32),
@@ -119,8 +223,10 @@ def _library(mode: str):
     if name not in _libs:
         lib = cuda_build.load(name)
         permute_args, const_args = _ARGTYPES[name]
-        for fn, args in (("permute", permute_args),
-                         ("set_constants", const_args)):
+        fns = [("permute", permute_args), ("set_constants", const_args)]
+        if name == "poseidon_gl":
+            fns.append(("merkle", _MERKLE_ARGTYPES))
+        for fn, args in fns:
             f = getattr(lib, f"{name}_{fn}")   # cached on lib, unlike lib[...]
             f.argtypes = args
             f.restype = ctypes.c_int
@@ -134,10 +240,16 @@ def _library(mode: str):
     if mode in ("mxu", "mxu24") and tab["mma"] is None:
         raise ValueError(f"mode {mode} needs MDS entries below 256")
     if _constants_source.get(name) != source:
-        ptrs = [tab[k].ctypes.data for k in ("rc", "mds", "circ", "diag")]
+        keys = (("rc0", "fold", "mds", "sp_pre", "sp_w", "sp_v")
+                if name == "poseidon_gl" else ("rc", "mds", "circ", "diag"))
+        ptrs = [tab[k].ctypes.data for k in keys]
         if name == "poseidon_gl_mma":
             ptrs += [op.ctypes.data for op in tab["mma"]]
         err = getattr(lib, f"{name}_set_constants")(*ptrs)
+        if name == "poseidon_gl" and err == _MDS_MISMATCH:
+            raise ValueError(f"constant set {source!r} does not have the MDS "
+                             "compiled into csrc/poseidon_gl.cu (mode mxu96 "
+                             "and the fused Merkle commit)")
         if err:
             raise RuntimeError(f"{name}_set_constants failed: cudaError {err}")
         _constants_source[name] = source
@@ -184,6 +296,7 @@ def _launch(mode: str, states: torch.Tensor, fn) -> torch.Tensor:
 def permute_mxu96(states: torch.Tensor) -> torch.Tensor:
     """(H, 12) states through csrc/poseidon_gl.cu, row-major, any H."""
     def run(lib, stream, x):
+        x = _padded(x, "mxu96")   # 16-byte aligned: the kernel's vector loads
         out = torch.empty_like(x)
         return out, lib.poseidon_gl_permute(x.data_ptr(), out.data_ptr(),
                                             x.shape[0], stream)
@@ -269,3 +382,72 @@ def permute(states: torch.Tensor) -> torch.Tensor:
     if MODE not in ENTRY:
         raise ValueError(f"unknown Poseidon mode {MODE!r}; one of {MODES}")
     return ENTRY[MODE](states)
+
+
+def merkle_plan(h: int, w: int) -> list:
+    """The fused commit's launches for a (h, w) source, as (base, leaves,
+    nodes, threads, more, chunk): `nodes` threads in blocks of `threads`,
+    each making one digest (of 8-column chunk `chunk` of a source row when
+    `leaves`, else of a parent of level `base`), then `more` levels within
+    each block. The rows first, one launch per chunk (measured faster on
+    the H100 than several chunks, or the whole row, per launch: PERF.md);
+    then one launch per level while it has more than MERKLE_THREADS
+    parents; then one block for the remaining levels."""
+    n_chunks = -(-w // 8) if w > 4 else 1
+    threads = min(MERKLE_THREADS, h)
+    plan = [(0, True, h, threads, 0, c) for c in range(n_chunks)]
+    base, nodes = 0, h
+    while nodes > 1:
+        parents = nodes // 2
+        if parents > MERKLE_THREADS:
+            plan.append((base, False, parents, MERKLE_THREADS, 0, 0))
+            base, nodes = base + 1, parents
+        else:
+            plan.append((base, False, parents, parents,
+                         parents.bit_length() - 1, 0))
+            nodes = 1
+    return plan
+
+
+def level_offset(h: int, k: int) -> int:
+    """Row of tree level k in the (2h - 1, 4) buffer (csrc/poseidon_gl.cu
+    level_offset): after the h + h/2 + ... nodes of the levels below."""
+    return 2 * h - 2 * (h >> k)
+
+
+def tree_levels(tree: torch.Tensor, h: int) -> list:
+    """[leaves (h, 4), ..., root (1, 4)]: views into the (2h - 1, 4) buffer."""
+    return [tree[level_offset(h, k):level_offset(h, k) + (h >> k)]
+            for k in range(h.bit_length())]
+
+
+def merkle_levels(source: torch.Tensor) -> list:
+    """Every level of the Merkle tree of a (H, W) int64 CUDA source (H a
+    power of two, any strides) through the fused commit of
+    csrc/poseidon_gl.cu: [leaves (H, 4), ..., root (1, 4)], views into one
+    (2H - 1, 4) buffer, equal to `merkle.merkelize_levels_plain`. Launches
+    as `merkle_plan` says, each counted in launches["merkle"]."""
+    if not source.is_cuda:
+        raise ValueError("poseidon_cuda.merkle_levels takes a CUDA tensor")
+    if source.dtype != torch.int64:
+        raise TypeError(f"source must be int64, not {source.dtype}")
+    if source.ndim != 2:
+        raise ValueError(f"source must be (H, W), not {tuple(source.shape)}")
+    h, w = source.shape
+    if h < 1 or h & (h - 1):
+        raise ValueError(f"height must be a power of two, not {h}")
+    lib = _library("mxu96")
+    tree = torch.empty((2 * h - 1, pg.HASH_SIZE), dtype=torch.int64,
+                       device=source.device)
+    row_stride, col_stride = source.stride()
+    stream = torch.cuda.current_stream(source.device).cuda_stream
+    with torch.cuda.device(source.device):
+        for base, leaves, nodes, threads, more, chunk in merkle_plan(h, w):
+            err = lib.poseidon_gl_merkle(
+                source.data_ptr(), row_stride, col_stride, w, tree.data_ptr(),
+                h, base, int(leaves), nodes, threads, more, chunk, stream)
+            if err:
+                raise RuntimeError(f"poseidon_gl_merkle launch failed: "
+                                   f"cudaError {err}")
+            launches["merkle"] += 1
+    return tree_levels(tree, h)

@@ -147,18 +147,19 @@ def hash_n_to_4(inputs):
     return permute(inputs)[:, :HASH_SIZE]
 
 
-def linear_hash(rows):
+def linear_hash(rows, perm=permute):
     """Row-wise sponge hash: (H, W) -> (H, 4).
 
     Chunks of RATE elements, previous digest carried in the capacity. Rows of
-    width <= 4 are zero-padded copies."""
+    width <= 4 are zero-padded copies. `perm` is the permutation to use
+    (`permute`, or `permute_plain` on any device)."""
     h, wdt = rows.shape
     if wdt <= HASH_SIZE:
         return torch.cat([rows, _zeros(h, HASH_SIZE - wdt, rows)], dim=1)
-    return linear_hash_fold(rows, _zeros(h, HASH_SIZE, rows))
+    return linear_hash_fold(rows, _zeros(h, HASH_SIZE, rows), perm)
 
 
-def linear_hash_fold(rows, digest):
+def linear_hash_fold(rows, digest, perm=permute):
     """Continue a row-wise sponge from `digest` over more columns; folding
     a wide row block by block (blocks a RATE multiple) gives the same digest
     as one linear_hash."""
@@ -168,13 +169,13 @@ def linear_hash_fold(rows, digest):
         if chunk.shape[1] < RATE:
             chunk = torch.cat([chunk, _zeros(h, RATE - chunk.shape[1], rows)],
                               dim=1)
-        digest = permute(torch.cat([chunk, digest], dim=1))[:, :HASH_SIZE]
+        digest = perm(torch.cat([chunk, digest], dim=1))[:, :HASH_SIZE]
     return digest
 
 
-def hash_level(nodes):
+def hash_level(nodes, perm=permute):
     """One Merkle reduction level: (H, 4) -> (H/2, 4)."""
     h = nodes.shape[0]
     pairs = nodes.reshape(h // 2, 2 * HASH_SIZE)
     cap = _zeros(h // 2, WIDTH - 2 * HASH_SIZE, nodes)
-    return permute(torch.cat([pairs, cap], dim=1))[:, :HASH_SIZE]
+    return perm(torch.cat([pairs, cap], dim=1))[:, :HASH_SIZE]

@@ -11,10 +11,14 @@ one bit at a time, each cut printed with its reason):
     (one nvcc per source, all at once);
  3. every Poseidon mode's kernel (`poseidon_cuda.MODES`) against the plain
     torch permutation on the card, bit for bit: the r05 batch (pinned
-    checksum), 515 random + 2 edge states and 2^22 states; each timed at
-    2^10, 2^16, 2^20 and 2^22 states beside the plain time and the bound
-    (`poseidon_bound`: the S-boxes' IMADs, the MDS on the tensor cores);
-    then the pinned r05 LDE checksum (2^23 -> 2^24 x 4, plain torch);
+    checksum), 515 random + 2 edge states, 2^22 states and a ragged
+    2^20 + 37; each timed through its entry point at 2^10, 2^16, 2^20 and
+    2^22 states beside the plain time and the bound (`poseidon_bound`: the
+    S-boxes' IMADs, the MDS on the tensor cores), and the poseidon_gl
+    library's kernels (mxu96, blocked, 1d) also alone, through
+    `poseidon_cuda.launch` on a batch already in their layout (for 1d the
+    difference is the entry point's two transposes); then the pinned r05
+    LDE checksum (2^23 -> 2^24 x 4, plain torch);
  3b. the fused Merkle commit (`poseidon_cuda.merkle_levels`, the second
     kernel of csrc/poseidon_gl.cu) bit for bit against the plain tree
     (`merkle.merkelize_levels_plain`) at 2^22 x 48 and against the chunked
@@ -147,12 +151,14 @@ MODE_KERNELS = {
     "mxu": ("zkevm_prover_tpu/ops/poseidon_pallas.py:594",
             "zkevm_prover_tpu_torch/csrc/poseidon_gl_mma.cu"),
     "blocked": ("zkevm_prover_tpu/ops/poseidon_pallas.py:532",
-                "zkevm_prover_tpu_torch/csrc/poseidon_gl_blocked.cu"),
+                "zkevm_prover_tpu_torch/csrc/poseidon_gl_blocked.cuh"),
     "1d": ("zkevm_prover_tpu/ops/poseidon_pallas.py:75",
-           "zkevm_prover_tpu_torch/csrc/poseidon_gl_soa.cu"),
+           "zkevm_prover_tpu_torch/csrc/poseidon_gl_1d.cuh"),
     "2d": ("zkevm_prover_tpu/ops/poseidon_pallas.py:450",
            "zkevm_prover_tpu_torch/csrc/poseidon_gl_soa.cu"),
 }
+# the modes whose kernels are in the poseidon_gl library, timed alone too
+GL_LIBRARY_MODES = ("mxu96", "blocked", "1d")
 # m16n8k32 MMAs per permutation and their useful share of multiply-adds
 # (csrc/poseidon_gl_mma.cu): mxu 30 rounds x 8 planes / 8 states, 1152 of
 # 4096; mxu24 30 x 4 plane pairs x 3 n8 tiles / 16 states, 4608 of 12288
@@ -170,9 +176,11 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
     # the main path's largest batch: one leaf chunk of a 2^22-row section
     big = np.random.default_rng(4).integers(0, gl.P, size=(1 << 22, 12),
                                             dtype=np.uint64)
+    ragged = np.random.default_rng(5).integers(
+        0, gl.P, size=((1 << 20) + 37, 12), dtype=np.uint64)
     cases = [("r05 (2^20, 12)", r05), ("515 random + edge states",
                                        np.concatenate([small, edges])),
-             ("(2^22, 12)", big)]
+             ("(2^22, 12)", big), ("ragged (2^20 + 37, 12)", ragged)]
     for what, states_np in cases:
         x = gl.from_u64(states_np, "cuda")
         plain = pg.permute_plain(x)
@@ -189,7 +197,8 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
             del k
         del x, plain
     _log(f"poseidon: every mode's kernel ({', '.join(pcu.MODES)}) == plain "
-         f"on r05, 515+2 and 2^22 states; r05 out[0,0] = {R05_CHECKSUM}")
+         f"on r05, 515+2, 2^22 and 2^20 + 37 states; r05 out[0,0] = "
+         f"{R05_CHECKSUM}")
     for mode, (mmas, useful) in MMA_PER_PERM.items():
         _log(f"poseidon {mode}: {mmas} m16n8k32 MMAs per permutation, "
              f"{100 * useful:.1f} % of their multiply-adds useful")
@@ -198,6 +207,7 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
          "(MDS, tensor cores), 192 bytes")
 
     times = {mode: {} for mode in pcu.MODES}
+    alone = {mode: {} for mode in GL_LIBRARY_MODES}
     plain_times = {}
     for bits in (10, 16, 20, 22):
         x = gl.from_u64(big[:1 << bits], "cuda")
@@ -212,6 +222,17 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
         _log(f"poseidon 2^{bits} states, ms (share of bound): "
              f"{', '.join(line)}; plain {plain_times[bits]:.3f}; bound "
              f"{bound_ms:.4f} ({bound_by})")
+        line = []
+        for mode in GL_LIBRARY_MODES:
+            laid = x.T.contiguous() if mode == "1d" else x
+            out = torch.empty_like(laid)
+            alone[mode][bits] = _time_ms(lambda: pcu.launch(mode, laid, out))
+            ms = alone[mode][bits]
+            line.append(f"{mode} {ms:.4f} ({100 * bound_ms / ms:.1f} %; "
+                        f"entry - alone {times[mode][bits] - ms:.4f})")
+            del laid, out
+        _log(f"poseidon 2^{bits} states, kernel alone on its own layout, ms "
+             f"(share of bound; entry point - alone): {', '.join(line)}")
     entries = {}   # at 2^22 states, the last size timed
     for mode in pcu.MODES:
         replaces, source = MODE_KERNELS[mode]
@@ -223,6 +244,8 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
             "bound_imad_per_perm": POSEIDON_IMAD,
             "bound_int8_ops_per_perm": POSEIDON_TENSOR_OPS,
             "library_ms": None}
+        if mode in alone:
+            entries[mode]["kernel_alone_ms"] = alone[mode][22]
     return entries
 
 

@@ -46,12 +46,23 @@ def test_kernel_matches_plain(card, h):
     assert torch.equal(out, pos.permute_plain(x))
 
 
-@pytest.mark.parametrize("mode", poseidon_cuda.MODES)
-@pytest.mark.parametrize("h", [517, 1 << 16])
+# Every mode at two heights; the two modes that take any H (blocked's
+# tiles of 128 states, 1d's blocks of 128 threads) also at ragged ones, the
+# last giving blocked's persistent grid (132 SMs x 5 blocks on the H100)
+# more tiles than blocks, so each block reuses its ring slots.
+RAGGED = [1, 127, 129, 16385, (1 << 16) + 3, 3 * (1 << 17) + 5]
+
+
+@pytest.mark.parametrize("mode,h", [(m, h) for m in poseidon_cuda.MODES
+                                    for h in (517, 1 << 16)]
+                         + [(m, h) for m in ("blocked", "1d")
+                            for h in RAGGED])
 def test_mode_kernel_matches_plain(card, mode, h):
     rng = np.random.default_rng(h)
     states = rng.integers(0, gl.P, (h, 12), dtype=np.uint64)
-    states[-2:] = [np.zeros(12, np.uint64), np.full(12, gl.P - 1, np.uint64)]
+    edges = np.stack([np.zeros(12, np.uint64),
+                      np.full(12, gl.P - 1, np.uint64)])[:h]
+    states[h - len(edges):] = edges
     x = gl.from_u64(states, card)
     before = dict(poseidon_cuda.launches)
     out = poseidon_cuda.ENTRY[mode](x)
@@ -137,15 +148,63 @@ def test_fused_merkle_rejects_what_it_does_not_take(card):
 
 def test_kernel_refuses_another_mds(card):
     x = torch.zeros((8, 12), dtype=torch.int64, device=card)
+    lazy = ("mxu96", "blocked", "1d")   # the poseidon_gl library's modes
+    before = dict(poseidon_cuda.launches)
     try:
         pc.load_constants("placeholder")
-        with pytest.raises(ValueError, match="compiled into"):
-            poseidon_cuda.permute_mxu96(x)
+        for mode in lazy:
+            with pytest.raises(ValueError, match="compiled into"):
+                poseidon_cuda.ENTRY[mode](x)
         with pytest.raises(ValueError, match="compiled into"):
             poseidon_cuda.merkle_levels(x)
     finally:
         pc.load_constants(None)
-    assert torch.equal(poseidon_cuda.permute_mxu96(x), pos.permute_plain(x))
+    assert poseidon_cuda.launches == before
+    for mode in lazy:
+        assert torch.equal(poseidon_cuda.ENTRY[mode](x), pos.permute_plain(x))
+
+
+@pytest.mark.parametrize("mode", ["mxu96", "blocked", "1d"])
+def test_launch_takes_the_laid_out_batch(card, mode):
+    states = np.random.default_rng(11).integers(0, gl.P, (300, 12),
+                                                dtype=np.uint64)
+    x = gl.from_u64(states, card)
+    laid = x.T.contiguous() if mode == "1d" else x
+    out = torch.empty_like(laid)
+    before = poseidon_cuda.launches[mode]
+    poseidon_cuda.launch(mode, laid, out)
+    assert poseidon_cuda.launches[mode] == before + 1
+    got = out.T if mode == "1d" else out
+    assert torch.equal(got, pos.permute_plain(x))
+    with pytest.raises(ValueError):   # the other layout
+        poseidon_cuda.launch(mode, laid.T.contiguous(), out.T.contiguous())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.empty(laid.numel() + 1, dtype=torch.int64, device=card)
+        poseidon_cuda.launch(mode, laid, flat[1:].view(laid.shape))
+    assert poseidon_cuda.launches[mode] == before + 1
+
+
+@pytest.mark.parametrize("mode", ["mxu96", "blocked", "1d"])
+def test_failed_launch_raises_uncounted(card, mode, monkeypatch):
+    x = torch.zeros((8, 12), dtype=torch.int64, device=card)
+    poseidon_cuda.ENTRY[mode](x)   # the library is loaded
+    lib = poseidon_cuda._libs["poseidon_gl"]
+    fn = poseidon_cuda._GL_PERMUTE[mode]
+    monkeypatch.setattr(lib, fn, lambda *args: 1)   # cudaErrorInvalidValue
+    before = dict(poseidon_cuda.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        poseidon_cuda.ENTRY[mode](x)
+    assert poseidon_cuda.launches == before
+
+
+def test_blocked_kernel_refuses_unaligned_pointers(card):
+    x = torch.zeros((9, 12), dtype=torch.int64, device=card)
+    poseidon_cuda.permute_blocked(x)   # the library is loaded
+    lib = poseidon_cuda._libs["poseidon_gl"]
+    stream = torch.cuda.current_stream().cuda_stream
+    # cudaErrorInvalidValue, nothing launched
+    assert lib.poseidon_gl_blocked_permute(x.data_ptr() + 8, x.data_ptr(), 8,
+                                           stream) == 1
 
 
 @pytest.mark.parametrize("name", ["fibonacci", "lookup", "permutation",

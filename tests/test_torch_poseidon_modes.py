@@ -87,10 +87,14 @@ def test_mxu24_operand_matches_jax():
 
 
 def test_padding_multiples_match_jax():
-    jax_pad = {"blocked": 8 * jpp.BLOCK_LANES, "mxu": jpp.MXU_LANES,
-               "mxu24": 2 * jpp.MXU_LANES, "1d": jpp.TB, "2d": jpp.TB}
+    # the runtime-table kernels keep the TPU tiles' multiples; the three
+    # kernels of the poseidon_gl library (the lazy body) take any H
+    jax_pad = {"mxu": jpp.MXU_LANES, "mxu24": 2 * jpp.MXU_LANES,
+               "2d": jpp.TB}
     assert {m: poseidon_cuda.PAD[m] for m in jax_pad} == jax_pad
-    assert poseidon_cuda.PAD["mxu96"] == 1   # that kernel takes any H
+    for mode in ("mxu96", "blocked", "1d"):
+        assert poseidon_cuda.PAD[mode] == 1
+        assert poseidon_cuda.LIBRARY[mode] == "poseidon_gl"
 
 
 @pytest.mark.parametrize("mode", poseidon_cuda.MODES)
@@ -103,6 +107,22 @@ def test_wrappers_refuse_cpu_tensors(mode):
     with pytest.raises(ValueError, match="CUDA tensor"):
         poseidon_cuda.ENTRY[mode](x)
     assert poseidon_cuda.launches == before
+
+
+@pytest.mark.parametrize("mode", ["mxu96", "blocked", "1d"])
+def test_launch_refuses_cpu_tensors(mode):
+    before = dict(poseidon_cuda.launches)
+    x = torch.zeros((12, 12), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        poseidon_cuda.launch(mode, x, torch.empty_like(x))
+    assert poseidon_cuda.launches == before
+
+
+@pytest.mark.parametrize("mode", ["2d", "mxu", "mxu24", "mxu128"])
+def test_launch_takes_only_the_lazy_library(mode):
+    x = torch.zeros((12, 12), dtype=torch.int64)
+    with pytest.raises(ValueError, match="launch takes the modes"):
+        poseidon_cuda.launch(mode, x, torch.empty_like(x))
 
 
 def test_unknown_mode_raises():

@@ -1,5 +1,9 @@
 // Poseidon-Goldilocks width-12 permutation over a batch of states, and the
-// Merkle commit of a (H, W) source fused onto it (sm_90a).
+// Merkle commit of a (H, W) source fused onto it (sm_90a). The library
+// built from this file also holds the "blocked" and "1d" kernels
+// (poseidon_gl_blocked.cuh, poseidon_gl_1d.cuh, included at the end): one
+// translation unit, so the lazy body's constant tables (poseidon_lazy.cuh)
+// exist once and poseidon_gl_set_constants fills them for every kernel.
 //
 // Replaces the TPU kernel zkevm_prover_tpu/ops/poseidon_pallas.py
 // _make_kernel_mxu96 (the production "mxu96" mode of poseidon_pallas.permute)
@@ -14,7 +18,7 @@
 //
 // Design: one thread per state, the 12 lanes in u64 registers, and
 // everything lazy (any u64 congruent to the value; canonical once, at the
-// end):
+// end), the body in poseidon_lazy.cuh:
 //  - field products on 32-bit words with inline-PTX carry chains
 //    (goldilocks.cuh mul_lazy / square_lazy / reduce_words);
 //  - the MDS with its coefficients compiled in as immediates
@@ -38,8 +42,8 @@
 // permutation is 118 S-boxes (4 field products each: 6-8 IMADs and a
 // 13-instruction reduction on the integer ALU), 8 small-integer MDS passes
 // of 432 IMADs and the 22 sparse partial rounds, about 30,000 instructions
-// in all against 192 bytes of device memory. chip_smoke.poseidon_bound counts the S-boxes' IMADs only
-// (the MDS on the tensor cores).
+// in all against 192 bytes of device memory. chip_smoke.poseidon_bound
+// counts the S-boxes' IMADs only (the MDS on the tensor cores).
 //
 // The commit, into one (2H - 1, 4) buffer: merkle_leaf_kernel, a thread
 // per row that absorbs one 8-element chunk of the row per launch straight
@@ -57,84 +61,13 @@
 
 #include <cstdint>
 
-#include "poseidon_common.cuh"
+#include "poseidon_lazy.cuh"
 
 namespace {
-
-using pos::WIDTH;
 
 constexpr int THREADS = 128;
 constexpr int RATE = 8;
 constexpr int HASH = 4;
-
-__constant__ uint64_t RC0[WIDTH];                 // added before round 0
-__constant__ uint64_t FOLD[pos::N_ROUNDS * WIDTH];  // added after round r
-// the sparse partial rounds (poseidon_cuda.sparse_constants)
-constexpr int kHat = WIDTH - 1;
-__constant__ uint64_t SP_PRE[kHat * kHat];        // lanes 1..11, round 3
-__constant__ uint64_t SP_W[pos::ROUNDS_P * kHat];  // row 0, lanes 1..11
-__constant__ uint64_t SP_V[pos::ROUNDS_P * kHat];  // column 0, lanes 1..11
-
-__device__ __forceinline__ void full_round(uint64_t s[WIDTH], int r) {
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) s[j] = pos::sbox_lazy(s[j]);
-  pos::mds_fold_limbs(s, FOLD + r * WIDTH);
-}
-
-// The 22 partial rounds, their MDS factored sparse (poseidon_cuda
-// .sparse_constants): lanes 1..11 <- PRE lanes 1..11 (the dense factors of
-// all 22 rounds, moved onto the last full round), then per round
-// [[m00, w], [v, I]]: lane 0 <- m00 x + w . s[1..11] + its constant, lane
-// j <- s[j] + v_j x, x the S-boxed lane 0. Lane 0's sum is one 5-word
-// accumulator reduced once; the dense small-integer MDS here measured
-// slower (27 % more IMADs per permutation).
-__device__ __forceinline__ void partial_rounds(uint64_t s[WIDTH]) {
-  uint64_t t[kHat];
-#pragma unroll
-  for (int i = 0; i < kHat; ++i) {
-    uint32_t r[5] = {0, 0, 0, 0, 0};
-#pragma unroll
-    for (int j = 0; j < kHat; ++j)
-      gl::mul_acc(r, SP_PRE[i * kHat + j], s[1 + j]);
-    t[i] = gl::reduce_words(r[0], r[1], r[2], r[3], r[4]);
-  }
-#pragma unroll
-  for (int i = 0; i < kHat; ++i) s[1 + i] = t[i];
-#pragma unroll 1
-  for (int k = 0; k < pos::ROUNDS_P; ++k) {
-    const uint64_t x = pos::sbox_lazy(s[0]);
-    const uint64_t c = FOLD[(pos::HALF_F + k) * WIDTH];
-    uint32_t r[5] = {gl::lo32(c), gl::hi32(c), 0, 0, 0};
-    gl::mul_acc(r, pos::mds_coeff(0, 0), x);
-#pragma unroll
-    for (int j = 0; j < kHat; ++j)
-      gl::mul_acc(r, SP_W[k * kHat + j], s[1 + j]);
-#pragma unroll
-    for (int j = 0; j < kHat; ++j)
-      s[1 + j] = gl::mul_add_lazy(SP_V[k * kHat + j], x, s[1 + j]);
-    s[0] = gl::reduce_words(r[0], r[1], r[2], r[3], r[4]);
-  }
-  // the rest of the last partial round's constants (for lanes 1..11)
-  constexpr int kLast = pos::HALF_F + pos::ROUNDS_P - 1;
-#pragma unroll
-  for (int j = 1; j < WIDTH; ++j)
-    s[j] = gl::add_lazy(s[j], FOLD[kLast * WIDTH + j]);
-}
-
-// The permutation of one lazy state, left lazy.
-__device__ __forceinline__ void permute_lazy(uint64_t s[WIDTH]) {
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) s[j] = gl::add_lazy(s[j], RC0[j]);
-  // one copy of the full-round code for both halves
-#pragma unroll 1
-  for (int r = 0; r < pos::N_ROUNDS;) {
-    full_round(s, r);
-    if (++r == pos::HALF_F) {
-      partial_rounds(s);
-      r += pos::ROUNDS_P;
-    }
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 5)
 permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
@@ -247,10 +180,11 @@ merkle_level_kernel(uint64_t* __restrict__ tree, int64_t h, int base,
 
 }  // namespace
 
-// Load the constant set: rc0 the 12 constants of round 0, fold the 30 x 12
-// constants added after each round's MDS (poseidon_cuda.fold_constants),
-// mds the set's 12x12 MDS row-major, which must be the compiled-in one, and
-// pre, w, v the sparse partial rounds (poseidon_cuda.sparse_constants).
+// Load the constant set for every kernel of the library: rc0 the 12
+// constants of round 0, fold the 30 x 12 constants added after each round's
+// MDS (poseidon_cuda.fold_constants), mds the set's 12x12 MDS row-major,
+// which must be the compiled-in one, and pre, w, v the sparse partial
+// rounds (poseidon_cuda.sparse_constants).
 // Returns a cudaError_t code, or POSEIDON_GL_MDS_MISMATCH.
 #define POSEIDON_GL_MDS_MISMATCH (-1)
 extern "C" int poseidon_gl_set_constants(const uint64_t* rc0,
@@ -307,3 +241,7 @@ extern "C" int poseidon_gl_merkle(const uint64_t* src, long long row_stride,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The library's other two permutation kernels, on the same lazy body.
+#include "poseidon_gl_blocked.cuh"
+#include "poseidon_gl_1d.cuh"

@@ -277,12 +277,11 @@ permute_mma_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
 // Copy the constant set into __constant__ memory (pos::set_constants) and
 // the two u8 MMA operands (16 x 32 and 32 x 24, row-major).
 extern "C" int poseidon_gl_mma_set_constants(const uint64_t* rc,
-                                             const uint32_t* mds,
                                              const uint32_t* circ,
                                              const uint32_t* diag,
                                              const uint8_t* op_a,
                                              const uint8_t* op_b) {
-  int err = pos::set_constants(rc, mds, circ, diag);
+  int err = pos::set_constants(rc, circ, diag);
   if (err) return err;
   cudaError_t e = cudaMemcpyToSymbol(OP_A, op_a, sizeof(OP_A));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(OP_B, op_b, sizeof(OP_B));

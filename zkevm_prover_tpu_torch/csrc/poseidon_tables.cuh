@@ -1,11 +1,15 @@
 // Poseidon-Goldilocks round pieces on runtime constant tables: the round
-// constants and the MDS in __constant__ memory, filled by set_constants.
+// constants and the circulant + diagonal form of the MDS in __constant__
+// memory, filled by set_constants.
 //
-// The kernels that take any small-integer MDS (poseidon_gl_soa.cu,
-// poseidon_gl_blocked.cu, poseidon_gl_mma.cu) include this header; each
-// shared library holds its own copy of the tables, filled by that
-// library's *_set_constants entry point. poseidon_gl.cu compiles the
-// reference MDS in (poseidon_common.cuh) and does not include it.
+// The kernels that read the constant set from runtime tables include this
+// header: poseidon_gl_soa.cu (mode "2d", the circulant + diagonal MDS) and
+// poseidon_gl_mma.cu (modes "mxu"/"mxu24": the round constants and the
+// canonical S-box; their MDS runs on the tensor cores). Each shared library
+// holds its own copy of the tables, filled by that library's
+// *_set_constants entry point. The poseidon_gl library (modes "mxu96",
+// "blocked", "1d" and the fused commit) compiles the reference MDS in
+// (poseidon_common.cuh) and runs the lazy body of poseidon_lazy.cuh instead.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,7 +21,6 @@
 namespace pos {
 
 __constant__ uint64_t RC[N_ROUNDS * WIDTH];  // round r, lane j at r*12 + j
-__constant__ uint32_t MDS[WIDTH * WIDTH];    // row-major, each < 2^16
 // M[i][j] = CIRC[(j - i) % 12] + (i == j) * DIAG[i], when M has that shape
 __constant__ uint32_t CIRC[WIDTH];
 __constant__ uint32_t DIAG[WIDTH];
@@ -33,29 +36,6 @@ __device__ __forceinline__ uint64_t reduce_split(uint64_t acc_lo,
   uint64_t lo64 = acc_lo + (acc_hi << 32);
   uint64_t hi64 = (acc_hi >> 32) + (lo64 < acc_lo ? 1 : 0);
   return gl::reduce128(hi64, lo64);
-}
-
-// Dense small-coefficient MDS: each output lane is 12 multiply-adds of the
-// coefficients into the u32 halves of the inputs (acc < 12 * 2^16 * 2^32 <
-// 2^53), then one 128-bit reduction, as _mds_small in ops/poseidon_gl.py.
-__device__ __forceinline__ void mds_dense(uint64_t s[WIDTH]) {
-  uint32_t lo[WIDTH], hi[WIDTH];
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) {
-    lo[j] = static_cast<uint32_t>(s[j]);
-    hi[j] = static_cast<uint32_t>(s[j] >> 32);
-  }
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) {
-    uint64_t acc_lo = 0, acc_hi = 0;
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j) {
-      uint64_t c = MDS[i * WIDTH + j];
-      acc_lo += c * lo[j];
-      acc_hi += c * hi[j];
-    }
-    s[i] = reduce_split(acc_lo, acc_hi);
-  }
 }
 
 // Circulant + diagonal MDS: out_i = sum_k CIRC[k] s_{(i+k)%12} + DIAG[i] s_i,
@@ -82,56 +62,26 @@ __device__ __forceinline__ void mds_circ_diag(uint64_t s[WIDTH]) {
   }
 }
 
-enum class Mds { kDense, kCircDiag };
-
-template <Mds kMds>
-__device__ __forceinline__ void mds(uint64_t s[WIDTH]) {
-  if constexpr (kMds == Mds::kDense) {
-    mds_dense(s);
-  } else {
-    mds_circ_diag(s);
-  }
-}
-
-template <Mds kMds>
 __device__ __forceinline__ void full_round(uint64_t s[WIDTH], int r) {
 #pragma unroll
   for (int j = 0; j < WIDTH; ++j) s[j] = sbox(gl::add(s[j], RC[r * WIDTH + j]));
-  mds<kMds>(s);
+  mds_circ_diag(s);
 }
 
-template <Mds kMds>
 __device__ __forceinline__ void partial_round(uint64_t s[WIDTH], int r) {
 #pragma unroll
   for (int j = 0; j < WIDTH; ++j) s[j] = gl::add(s[j], RC[r * WIDTH + j]);
   s[0] = sbox(s[0]);
-  mds<kMds>(s);
-}
-
-// The whole permutation in registers with the dense MDS, full rounds
-// unrolled. Input: any u64 per lane (reduced once here: the reference's
-// first full round is congruence-preserving).
-__device__ __forceinline__ void permute_dense(uint64_t s[WIDTH]) {
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) s[j] = gl::canonical(s[j]);
-#pragma unroll
-  for (int r = 0; r < HALF_F; ++r) full_round<Mds::kDense>(s, r);
-#pragma unroll 2
-  for (int r = HALF_F; r < HALF_F + ROUNDS_P; ++r)
-    partial_round<Mds::kDense>(s, r);
-#pragma unroll
-  for (int r = HALF_F + ROUNDS_P; r < N_ROUNDS; ++r)
-    full_round<Mds::kDense>(s, r);
+  mds_circ_diag(s);
 }
 
 // Copy a constant set into this library's tables: rc holds the 360 round
-// constants, mds the 12x12 coefficients row-major (each < 2^16), circ/diag
-// its circulant + diagonal decomposition (zeros where M has no such shape;
-// only the circ-diag kernel reads them). Returns a cudaError_t code.
-inline int set_constants(const uint64_t* rc, const uint32_t* mds,
-                         const uint32_t* circ, const uint32_t* diag) {
+// constants, circ/diag the MDS's circulant + diagonal decomposition (zeros
+// where M has no such shape; only the 2d kernel reads them). Returns a
+// cudaError_t code.
+inline int set_constants(const uint64_t* rc, const uint32_t* circ,
+                         const uint32_t* diag) {
   cudaError_t err = cudaMemcpyToSymbol(RC, rc, sizeof(RC));
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(MDS, mds, sizeof(MDS));
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(CIRC, circ, sizeof(CIRC));
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(DIAG, diag, sizeof(DIAG));
   return static_cast<int>(err);

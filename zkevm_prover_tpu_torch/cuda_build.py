@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each kernel is one source under `csrc/` with a plain C interface. It is
-compiled for sm_90a into a shared library under `build/`, in a directory
+Each kernel library is one source under `csrc/` (with the headers it
+includes) and a plain C interface. It is compiled for sm_90a into a shared
+library under `build/`, in a directory
 keyed by a hash of every file in `csrc/` and of the flags, so an edited
 source is rebuilt and an unchanged one is built once. Nothing is built when
 a module is imported: `load` builds at the first launch, and `build` starts
@@ -30,9 +31,9 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 
-# kernel name -> its source under csrc/
+# kernel library name -> its source under csrc/ (poseidon_gl.cu includes
+# the blocked and 1d kernels: one translation unit, one constant set)
 KERNELS = {"poseidon_gl": "poseidon_gl.cu",
-           "poseidon_gl_blocked": "poseidon_gl_blocked.cu",
            "poseidon_gl_soa": "poseidon_gl_soa.cu",
            "poseidon_gl_mma": "poseidon_gl_mma.cu"}
 

@@ -9,24 +9,29 @@ out as its kernel takes it, pads it to its own tile, and adds one to
 
   mode      kernel (csrc/)            layout it takes              pad to
   mxu96     poseidon_gl.cu            (H, 12) row-major            1
-  blocked   poseidon_gl_blocked.cu    (H, 12) row-major            16384
-  1d, 2d    poseidon_gl_soa.cu        (12, H) lane-major           512
+  blocked   poseidon_gl_blocked.cuh   (H, 12) row-major            1
+  1d        poseidon_gl_1d.cuh        (12, H) lane-major           1
+  2d        poseidon_gl_soa.cu        (12, H) lane-major           512
   mxu       poseidon_gl_mma.cu        (12, H) lane-major           1024
   mxu24     poseidon_gl_mma.cu        (24, H/2): two halves stacked 2048
 
-The padding multiples are the JAX package's (`poseidon_pallas.permute`),
-except mxu96, whose kernel takes any H. Every entry point checks what its
-kernel takes and raises on anything else, and `permute` raises on an
-unknown mode: nothing falls back to another mode or to the plain version.
-Each kernel's note says what TPU kernel it replaces and what bounds it; the
-plain twin of all of them is `poseidon_gl.permute_plain`.
+mxu96, blocked and 1d are one library (`poseidon_gl.cu` includes the other
+two sources) on one lazy permutation body (`poseidon_lazy.cuh`): the
+reference MDS compiled in, the tables derived here (`fold_constants`,
+`sparse_constants`), loaded once for all three, and a constant set with
+another MDS refused. Their kernels take any H; `launch` runs one of them on
+a batch already in its layout. The other padding multiples are the JAX
+package's (`poseidon_pallas.permute`), and those three kernels read the
+constant set from runtime tables (`poseidon_tables.cuh`). Every entry point
+checks what its kernel takes and raises on anything else, and `permute`
+raises on an unknown mode: nothing falls back to another mode or to the
+plain version. Each kernel's note says what TPU kernel it replaces and what
+bounds it; the plain twin of all of them is `poseidon_gl.permute_plain`.
 
-The mxu96 library also holds the fused Merkle commit, `merkle_levels`
+The poseidon_gl library also holds the fused Merkle commit, `merkle_levels`
 (`ops/merkle.py` takes it under mode mxu96; its plain twin is
 `merkle.merkelize_levels_plain`), counted in `launches["merkle"]`, apart
-from the modes. That library has the reference MDS compiled in and runs on
-tables derived here (`fold_constants`, `sparse_constants`); it raises on a
-constant set with another MDS.
+from the modes.
 """
 
 from __future__ import annotations
@@ -47,35 +52,40 @@ MODE = "mxu96"
 launches = {mode: 0 for mode in MODES}
 launches["merkle"] = 0
 
-PAD = {"1d": 512, "2d": 512, "blocked": 8 * 2048, "mxu": 1024,
-       "mxu24": 2 * 1024, "mxu96": 1}
+PAD = {"1d": 1, "2d": 512, "blocked": 1, "mxu": 1024, "mxu24": 2 * 1024,
+       "mxu96": 1}
 
 # kernel library of each mode (cuda_build.KERNELS names)
-LIBRARY = {"1d": "poseidon_gl_soa", "2d": "poseidon_gl_soa",
-           "blocked": "poseidon_gl_blocked", "mxu": "poseidon_gl_mma",
+LIBRARY = {"1d": "poseidon_gl", "2d": "poseidon_gl_soa",
+           "blocked": "poseidon_gl", "mxu": "poseidon_gl_mma",
            "mxu24": "poseidon_gl_mma", "mxu96": "poseidon_gl"}
+
+# the poseidon_gl library's permutation entry points, each (in, out, n,
+# stream) on its mode's own layout
+_GL_PERMUTE = {"mxu96": "poseidon_gl_permute",
+               "blocked": "poseidon_gl_blocked_permute",
+               "1d": "poseidon_gl_1d_permute"}
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_ARGTYPES = {  # (permute, set_constants) argument types of each library
-    "poseidon_gl": ([_P, _P, _LL, _P], [_P] * 6),
-    "poseidon_gl_blocked": ([_P, _P, ctypes.c_longlong, _P], [_P] * 4),
-    "poseidon_gl_soa": ([_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
-                        [_P] * 4),
-    "poseidon_gl_mma": ([_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
-                        [_P] * 6),
+_I = ctypes.c_int
+# poseidon_gl_merkle(src, row_stride, col_stride, width, tree, h, base,
+#                    leaves, nodes, threads, more, chunk, stream)
+_MERKLE_ARGTYPES = [_P, _LL, _LL, _LL, _P, _LL, _I, _I, _LL, _I, _I, _I, _P]
+_FUNCTIONS = {  # argument types of each library's entry points
+    "poseidon_gl": {**{fn: [_P, _P, _LL, _P] for fn in _GL_PERMUTE.values()},
+                    "poseidon_gl_set_constants": [_P] * 6,
+                    "poseidon_gl_merkle": _MERKLE_ARGTYPES},
+    "poseidon_gl_soa": {"poseidon_gl_soa_permute": [_P, _P, _LL, _P],
+                        "poseidon_gl_soa_set_constants": [_P] * 3},
+    "poseidon_gl_mma": {"poseidon_gl_mma_permute": [_P, _P, _LL, _I, _P],
+                        "poseidon_gl_mma_set_constants": [_P] * 5},
 }
+MERKLE_THREADS = 128   # csrc/poseidon_gl.cu THREADS
+_MDS_MISMATCH = -1     # csrc/poseidon_gl.cu POSEIDON_GL_MDS_MISMATCH
 
 _libs: dict = {}
 _constants_source: dict = {}
-
-
-# poseidon_gl_merkle(src, row_stride, col_stride, width, tree, h, base,
-#                    leaves, nodes, threads, more, chunk, stream)
-_MERKLE_ARGTYPES = [_P, _LL, _LL, _LL, _P, _LL, ctypes.c_int, ctypes.c_int,
-                    _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
-MERKLE_THREADS = 128   # csrc/poseidon_gl.cu THREADS
-_MDS_MISMATCH = -1     # csrc/poseidon_gl.cu POSEIDON_GL_MDS_MISMATCH
 
 
 def fold_constants(C, M):
@@ -222,12 +232,8 @@ def _library(mode: str):
     name = LIBRARY[mode]
     if name not in _libs:
         lib = cuda_build.load(name)
-        permute_args, const_args = _ARGTYPES[name]
-        fns = [("permute", permute_args), ("set_constants", const_args)]
-        if name == "poseidon_gl":
-            fns.append(("merkle", _MERKLE_ARGTYPES))
-        for fn, args in fns:
-            f = getattr(lib, f"{name}_{fn}")   # cached on lib, unlike lib[...]
+        for fn, args in _FUNCTIONS[name].items():
+            f = getattr(lib, fn)   # cached on lib, unlike lib[...]
             f.argtypes = args
             f.restype = ctypes.c_int
         _libs[name] = lib
@@ -241,15 +247,15 @@ def _library(mode: str):
         raise ValueError(f"mode {mode} needs MDS entries below 256")
     if _constants_source.get(name) != source:
         keys = (("rc0", "fold", "mds", "sp_pre", "sp_w", "sp_v")
-                if name == "poseidon_gl" else ("rc", "mds", "circ", "diag"))
+                if name == "poseidon_gl" else ("rc", "circ", "diag"))
         ptrs = [tab[k].ctypes.data for k in keys]
         if name == "poseidon_gl_mma":
             ptrs += [op.ctypes.data for op in tab["mma"]]
         err = getattr(lib, f"{name}_set_constants")(*ptrs)
         if name == "poseidon_gl" and err == _MDS_MISMATCH:
             raise ValueError(f"constant set {source!r} does not have the MDS "
-                             "compiled into csrc/poseidon_gl.cu (mode mxu96 "
-                             "and the fused Merkle commit)")
+                             "compiled into csrc/poseidon_gl.cu (modes mxu96, "
+                             "blocked and 1d, and the fused Merkle commit)")
         if err:
             raise RuntimeError(f"{name}_set_constants failed: cudaError {err}")
         _constants_source[name] = source
@@ -293,27 +299,68 @@ def _launch(mode: str, states: torch.Tensor, fn) -> torch.Tensor:
     return out
 
 
+def launch(mode: str, x: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of the poseidon_gl library's `mode` kernel (mxu96,
+    blocked or 1d) from x into out, both already in that kernel's layout:
+    (H, 12) row-major, or (12, H) lane-major for 1d; int64, contiguous and
+    16-byte aligned on one card. Counted in launches[mode]. The mode's
+    entry point lays the batch out and calls this."""
+    if mode not in _GL_PERMUTE:
+        raise ValueError(f"launch takes the modes {tuple(_GL_PERMUTE)}, "
+                         f"not {mode!r}")
+    for t in (x, out):
+        if not t.is_cuda:
+            raise ValueError("poseidon_cuda.launch takes CUDA tensors")
+        if t.dtype != torch.int64:
+            raise TypeError(f"states must be int64, not {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("states must be contiguous and 16-byte aligned")
+    lanes = 0 if mode == "1d" else 1    # the axis of the 12 lanes
+    if (x.ndim != 2 or x.shape[lanes] != pg.WIDTH or out.shape != x.shape
+            or out.device != x.device):
+        layout = "(12, H)" if lanes == 0 else "(H, 12)"
+        raise ValueError(f"mode {mode} takes a {layout} batch and an output "
+                         f"like it, not {tuple(x.shape)} -> "
+                         f"{tuple(out.shape)}")
+    lib = _library(mode)
+    n = x.shape[1 - lanes]
+    if n == 0:
+        return
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = getattr(lib, _GL_PERMUTE[mode])(x.data_ptr(), out.data_ptr(),
+                                              n, stream)
+    if err:
+        raise RuntimeError(f"{_GL_PERMUTE[mode]} ({mode}) launch failed: "
+                           f"cudaError {err}")
+    launches[mode] += 1
+
+
+def _permute_gl(mode: str, states: torch.Tensor) -> torch.Tensor:
+    _check(states)
+    x = _padded(states, mode)   # PAD 1: only 16-byte aligned
+    if mode == "1d":
+        x = x.T.contiguous()
+    out = torch.empty_like(x)
+    launch(mode, x, out)
+    return out.T.contiguous() if mode == "1d" else out
+
+
 def permute_mxu96(states: torch.Tensor) -> torch.Tensor:
     """(H, 12) states through csrc/poseidon_gl.cu, row-major, any H."""
-    def run(lib, stream, x):
-        x = _padded(x, "mxu96")   # 16-byte aligned: the kernel's vector loads
-        out = torch.empty_like(x)
-        return out, lib.poseidon_gl_permute(x.data_ptr(), out.data_ptr(),
-                                            x.shape[0], stream)
-    return _launch("mxu96", states, run)
+    return _permute_gl("mxu96", states)
 
 
 def permute_blocked(states: torch.Tensor) -> torch.Tensor:
-    """(H, 12) states through csrc/poseidon_gl_blocked.cu: row-major, padded
-    to the blocked multiple."""
-    def run(lib, stream, x):
-        h = x.shape[0]
-        x = _padded(x, "blocked")
-        out = torch.empty_like(x)
-        err = lib.poseidon_gl_blocked_permute(x.data_ptr(), out.data_ptr(),
-                                              x.shape[0], stream)
-        return out[:h], err
-    return _launch("blocked", states, run)
+    """(H, 12) states through csrc/poseidon_gl_blocked.cuh: row-major tiles
+    staged by bulk copies, any H."""
+    return _permute_gl("blocked", states)
+
+
+def permute_1d(states: torch.Tensor) -> torch.Tensor:
+    """(H, 12) states through csrc/poseidon_gl_1d.cuh: transposed to (12, H)
+    lane-major and back, any H."""
+    return _permute_gl("1d", states)
 
 
 def _lane_major(mode: str, fn):
@@ -327,25 +374,14 @@ def _lane_major(mode: str, fn):
     return run
 
 
-def _permute_soa(states: torch.Tensor, mode: str) -> torch.Tensor:
-    def run(lib, stream, xt):
-        out = torch.empty_like(xt)
-        return out, lib.poseidon_gl_soa_permute(
-            xt.data_ptr(), out.data_ptr(), xt.shape[1], int(mode == "2d"),
-            stream)
-    return _launch(mode, states, _lane_major(mode, run))
-
-
-def permute_1d(states: torch.Tensor) -> torch.Tensor:
-    """(H, 12) states through csrc/poseidon_gl_soa.cu with the dense MDS:
-    (12, H) lane-major, padded to 512."""
-    return _permute_soa(states, "1d")
-
-
 def permute_2d(states: torch.Tensor) -> torch.Tensor:
     """(H, 12) states through csrc/poseidon_gl_soa.cu with the circulant +
     diagonal MDS: (12, H) lane-major, padded to 512."""
-    return _permute_soa(states, "2d")
+    def run(lib, stream, xt):
+        out = torch.empty_like(xt)
+        return out, lib.poseidon_gl_soa_permute(
+            xt.data_ptr(), out.data_ptr(), xt.shape[1], stream)
+    return _launch("2d", states, _lane_major("2d", run))
 
 
 def permute_mxu(states: torch.Tensor) -> torch.Tensor:

@@ -15,10 +15,12 @@ one bit at a time, each cut printed with its reason):
     2^20 + 37; each timed through its entry point at 2^10, 2^16, 2^20 and
     2^22 states beside the plain time and the bound (`poseidon_bound`: the
     S-boxes' IMADs, the MDS on the tensor cores), and the poseidon_gl
-    library's kernels (mxu96, blocked, 1d) also alone, through
+    library's kernels (mxu96, 2d, mxu, blocked, 1d) also alone, through
     `poseidon_cuda.launch` on a batch already in their layout (for 1d the
-    difference is the entry point's two transposes); then the pinned r05
-    LDE checksum (2^23 -> 2^24 x 4, plain torch);
+    difference is the entry point's two transposes), each beside mxu96
+    alone in the same process (2d and mxu differ from it in the full
+    rounds' MDS form alone); then the pinned r05 LDE checksum
+    (2^23 -> 2^24 x 4, plain torch);
  3b. the fused Merkle commit (`poseidon_cuda.merkle_levels`, the second
     kernel of csrc/poseidon_gl.cu) bit for bit against the plain tree
     (`merkle.merkelize_levels_plain`) at 2^22 x 48 and against the chunked
@@ -149,20 +151,21 @@ MODE_KERNELS = {
     "mxu24": ("zkevm_prover_tpu/ops/poseidon_pallas.py:159",
               "zkevm_prover_tpu_torch/csrc/poseidon_gl_mma.cu"),
     "mxu": ("zkevm_prover_tpu/ops/poseidon_pallas.py:594",
-            "zkevm_prover_tpu_torch/csrc/poseidon_gl_mma.cu"),
+            "zkevm_prover_tpu_torch/csrc/poseidon_gl_mxu.cuh"),
     "blocked": ("zkevm_prover_tpu/ops/poseidon_pallas.py:532",
                 "zkevm_prover_tpu_torch/csrc/poseidon_gl_blocked.cuh"),
     "1d": ("zkevm_prover_tpu/ops/poseidon_pallas.py:75",
            "zkevm_prover_tpu_torch/csrc/poseidon_gl_1d.cuh"),
     "2d": ("zkevm_prover_tpu/ops/poseidon_pallas.py:450",
-           "zkevm_prover_tpu_torch/csrc/poseidon_gl_soa.cu"),
+           "zkevm_prover_tpu_torch/csrc/poseidon_gl_2d.cuh"),
 }
 # the modes whose kernels are in the poseidon_gl library, timed alone too
-GL_LIBRARY_MODES = ("mxu96", "blocked", "1d")
-# m16n8k32 MMAs per permutation and their useful share of multiply-adds
-# (csrc/poseidon_gl_mma.cu): mxu 30 rounds x 8 planes / 8 states, 1152 of
-# 4096; mxu24 30 x 4 plane pairs x 3 n8 tiles / 16 states, 4608 of 12288
-MMA_PER_PERM = {"mxu": (30.0, 1152 / 4096), "mxu24": (22.5, 4608 / 12288)}
+GL_LIBRARY_MODES = ("mxu96", "2d", "mxu", "blocked", "1d")
+# m16n8k32 MMAs per permutation and their useful share of multiply-adds:
+# mxu (csrc/poseidon_gl_mxu.cuh) 8 full rounds x 8 planes x 2 n8 tiles / 16
+# states, 16 x 144 of 2 x 4096; mxu24 (csrc/poseidon_gl_mma.cu) 30 rounds
+# x 4 plane pairs x 3 n8 tiles / 16 states, 4608 of 12288
+MMA_PER_PERM = {"mxu": (8.0, 2304 / 8192), "mxu24": (22.5, 4608 / 12288)}
 
 
 def check_poseidon(torch, gl, pg, pcu) -> dict:
@@ -233,6 +236,10 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
             del laid, out
         _log(f"poseidon 2^{bits} states, kernel alone on its own layout, ms "
              f"(share of bound; entry point - alone): {', '.join(line)}")
+        ratios = [f"{mode} {alone[mode][bits] / alone['mxu96'][bits]:.4f}"
+                  for mode in GL_LIBRARY_MODES if mode != "mxu96"]
+        _log(f"poseidon 2^{bits} states, kernel alone / mxu96 alone: "
+             f"{', '.join(ratios)}")
     entries = {}   # at 2^22 states, the last size timed
     for mode in pcu.MODES:
         replaces, source = MODE_KERNELS[mode]

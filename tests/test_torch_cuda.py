@@ -46,16 +46,19 @@ def test_kernel_matches_plain(card, h):
     assert torch.equal(out, pos.permute_plain(x))
 
 
-# Every mode at two heights; the two modes that take any H (blocked's
-# tiles of 128 states, 1d's blocks of 128 threads) also at ragged ones, the
-# last giving blocked's persistent grid (132 SMs x 5 blocks on the H100)
-# more tiles than blocks, so each block reuses its ring slots.
-RAGGED = [1, 127, 129, 16385, (1 << 16) + 3, 3 * (1 << 17) + 5]
+# Every mode at two heights; the modes that take any H (the poseidon_gl
+# library's but mxu96, which test_kernel_matches_plain covers: blocked's
+# tiles of 128 states, 2d's and 1d's blocks of 128 threads, mxu's warps of
+# 32 states in two m16 tiles) also at ragged ones: 31 and 33 a part-filled
+# warp and m16 tile of mxu, the last giving blocked's persistent grid
+# (132 SMs x 5 blocks on the H100) more tiles than blocks, so each block
+# reuses its ring slots.
+RAGGED = [1, 31, 33, 127, 129, 16385, (1 << 16) + 3, 3 * (1 << 17) + 5]
 
 
 @pytest.mark.parametrize("mode,h", [(m, h) for m in poseidon_cuda.MODES
                                     for h in (517, 1 << 16)]
-                         + [(m, h) for m in ("blocked", "1d")
+                         + [(m, h) for m in ("blocked", "1d", "2d", "mxu")
                             for h in RAGGED])
 def test_mode_kernel_matches_plain(card, mode, h):
     rng = np.random.default_rng(h)
@@ -148,7 +151,7 @@ def test_fused_merkle_rejects_what_it_does_not_take(card):
 
 def test_kernel_refuses_another_mds(card):
     x = torch.zeros((8, 12), dtype=torch.int64, device=card)
-    lazy = ("mxu96", "blocked", "1d")   # the poseidon_gl library's modes
+    lazy = ("mxu96", "2d", "mxu", "blocked", "1d")   # the poseidon_gl library's
     before = dict(poseidon_cuda.launches)
     try:
         pc.load_constants("placeholder")
@@ -164,7 +167,7 @@ def test_kernel_refuses_another_mds(card):
         assert torch.equal(poseidon_cuda.ENTRY[mode](x), pos.permute_plain(x))
 
 
-@pytest.mark.parametrize("mode", ["mxu96", "blocked", "1d"])
+@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "blocked", "1d"])
 def test_launch_takes_the_laid_out_batch(card, mode):
     states = np.random.default_rng(11).integers(0, gl.P, (300, 12),
                                                 dtype=np.uint64)
@@ -184,7 +187,7 @@ def test_launch_takes_the_laid_out_batch(card, mode):
     assert poseidon_cuda.launches[mode] == before + 1
 
 
-@pytest.mark.parametrize("mode", ["mxu96", "blocked", "1d"])
+@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "blocked", "1d"])
 def test_failed_launch_raises_uncounted(card, mode, monkeypatch):
     x = torch.zeros((8, 12), dtype=torch.int64, device=card)
     poseidon_cuda.ENTRY[mode](x)   # the library is loaded

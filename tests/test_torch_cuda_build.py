@@ -1,5 +1,6 @@
 """cuda_build.sass_counts on cuobjdump-shaped text: opcode classes, loops
-and the guarded blocks that hold a loop (CPU; no toolkit needed)."""
+and the guarded blocks that hold a loop; and kernel_ab's refusal without a
+card (CPU; no toolkit needed)."""
 
 from __future__ import annotations
 
@@ -89,3 +90,21 @@ def test_sass_counts_splits_kernels(counts, names):
     for n in names:
         assert got[n]["counts"]["all"] == 4
         assert got[n]["loops"] == [] and got[n]["guarded"] == []
+
+
+def test_kernel_ab_needs_a_card(capsys):
+    """The same-process A/B harness takes the poseidon_gl library's modes
+    and exits nonzero, printing no time, where CUDA is absent."""
+    import torch
+
+    from zkevm_prover_tpu_torch import kernel_ab
+    from zkevm_prover_tpu_torch.ops import poseidon_cuda
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal where CUDA is absent")
+    with pytest.raises(SystemExit):
+        kernel_ab.main(["mxu24", "lib.so"])   # not a poseidon_gl mode
+    assert kernel_ab.main(["2d", "lib.so"]) == 2
+    assert "ms" not in capsys.readouterr().out
+    assert sorted(poseidon_cuda._GL_PERMUTE) == ["1d", "2d", "blocked",
+                                                "mxu", "mxu96"]

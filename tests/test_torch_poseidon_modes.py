@@ -58,7 +58,6 @@ def test_circ_diag_matches_jax():
     assert poseidon_cuda.circ_diag(coeffs) == jpp._circ_diag(_jax_coeffs())
     tab = poseidon_cuda._host_tables(pc.source())
     circ, diag = jpp._circ_diag(_jax_coeffs())
-    assert tab["has_circ_diag"]
     assert tab["circ"].tolist() == circ and tab["diag"].tolist() == diag
     # a matrix of no such shape has none in both packages
     bad = coeffs.copy()
@@ -68,13 +67,20 @@ def test_circ_diag_matches_jax():
 
 
 def test_mxu_operand_matches_jax():
-    a, _ = poseidon_cuda.mma_operands(pg.mds_coeffs(pc.source()))
+    b, _ = poseidon_cuda.mma_operands(pg.mds_coeffs(pc.source()))
     jax_a = _jax_operand("mxu")      # I_8 (x) M padded to 128
     w = pg.WIDTH
-    assert a.shape == (16, 32) and not a[w:].any() and not a[:, w:].any()
+    # B = M^T on the kernel's k-slots (rows) and output columns
+    k = [i for i, lane in enumerate(poseidon_cuda.MXU_K_LANE) if lane is not None]
+    n = [i for i, lane in enumerate(poseidon_cuda.MXU_N_LANE) if lane is not None]
+    ins = [poseidon_cuda.MXU_K_LANE[i] for i in k]
+    outs = [poseidon_cuda.MXU_N_LANE[i] for i in n]
+    assert sorted(ins) == sorted(outs) == list(range(w))
+    assert b.shape == (32, 16) and b.sum() == b[np.ix_(k, n)].sum()
     for t in range(jpp.N_LIMB8):
-        np.testing.assert_array_equal(
-            jax_a[t * w:(t + 1) * w, t * w:(t + 1) * w], a[:w, :w])
+        block = jax_a[t * w:(t + 1) * w, t * w:(t + 1) * w]
+        np.testing.assert_array_equal(b[np.ix_(k, n)],
+                                      block[np.ix_(outs, ins)].T)
 
 
 def test_mxu24_operand_matches_jax():
@@ -87,12 +93,11 @@ def test_mxu24_operand_matches_jax():
 
 
 def test_padding_multiples_match_jax():
-    # the runtime-table kernels keep the TPU tiles' multiples; the three
-    # kernels of the poseidon_gl library (the lazy body) take any H
-    jax_pad = {"mxu": jpp.MXU_LANES, "mxu24": 2 * jpp.MXU_LANES,
-               "2d": jpp.TB}
-    assert {m: poseidon_cuda.PAD[m] for m in jax_pad} == jax_pad
-    for mode in ("mxu96", "blocked", "1d"):
+    # the runtime-table kernel (mxu24) keeps the TPU tile's multiple; the
+    # five kernels of the poseidon_gl library (the lazy body) take any H
+    assert poseidon_cuda.PAD["mxu24"] == 2 * jpp.MXU_LANES
+    assert poseidon_cuda.LIBRARY["mxu24"] == "poseidon_gl_mma"
+    for mode in ("mxu96", "2d", "mxu", "blocked", "1d"):
         assert poseidon_cuda.PAD[mode] == 1
         assert poseidon_cuda.LIBRARY[mode] == "poseidon_gl"
 
@@ -109,7 +114,7 @@ def test_wrappers_refuse_cpu_tensors(mode):
     assert poseidon_cuda.launches == before
 
 
-@pytest.mark.parametrize("mode", ["mxu96", "blocked", "1d"])
+@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "blocked", "1d"])
 def test_launch_refuses_cpu_tensors(mode):
     before = dict(poseidon_cuda.launches)
     x = torch.zeros((12, 12), dtype=torch.int64)
@@ -118,7 +123,7 @@ def test_launch_refuses_cpu_tensors(mode):
     assert poseidon_cuda.launches == before
 
 
-@pytest.mark.parametrize("mode", ["2d", "mxu", "mxu24", "mxu128"])
+@pytest.mark.parametrize("mode", ["mxu24", "mxu128"])
 def test_launch_takes_only_the_lazy_library(mode):
     x = torch.zeros((12, 12), dtype=torch.int64)
     with pytest.raises(ValueError, match="launch takes the modes"):

@@ -1,10 +1,13 @@
 """The host side of csrc/poseidon_gl.cu, checked on the CPU before the card
-sees it: the MDS compiled into the source equals the JAX package's, the
-derived constants (`poseidon_cuda.fold_constants`, `sparse_constants`) run
-through a Python-int model of the kernel's rounds and lazy reductions equal
-JAX `poseidon_gl.permute` bit for bit, and the fused Merkle commit's launch
+sees it: the MDS compiled into the source, and its circulant + diagonal
+form, equal the JAX package's; the derived constants
+(`poseidon_cuda.fold_constants`, `sparse_constants`) run through a
+Python-int model of the kernel's rounds and lazy reductions, with the dense
+MDS of kernel 1 and with mode 2d's circulant form in the frequency domain
+(every intermediate's range bounded), equal JAX
+`poseidon_gl.permute` bit for bit; and the fused Merkle commit's launch
 plan and buffer layout, run with the plain permutation, equal the chunked
-tree."""
+tree. Mode mxu's model is in test_torch_poseidon_mxu.py."""
 
 import re
 from pathlib import Path
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from zkevm_prover_tpu.ops import poseidon_gl as jpgl
+from zkevm_prover_tpu.ops import poseidon_pallas as jpp
 from zkevm_prover_tpu_torch.ops import goldilocks as gl
 from zkevm_prover_tpu_torch.ops import merkle
 from zkevm_prover_tpu_torch.ops import poseidon_constants as pc
@@ -27,19 +31,27 @@ EPS = (1 << 32) - 1
 U64 = 1 << 64
 
 
-def compiled_mds() -> np.ndarray:
-    """The 12x12 MDS that poseidon_common.cuh compiles in, read from the
-    source (circ_coeff's chain of k == i ? c, and the (0, 0) diagonal)."""
+def compiled_circ_diag() -> tuple:
+    """The circulant + diagonal form that poseidon_common.cuh compiles in,
+    read from the source (circ_coeff's chain of k == i ? c, and
+    diag_coeff's one nonzero entry, lane 0's)."""
     text = (CSRC / "poseidon_common.cuh").read_text()
     body = text[text.index("constexpr uint32_t circ_coeff"):]
     body = body[:body.index(";")]
     circ = [int(c) for _, c in re.findall(r"k == (\d+) \? (\d+)", body)]
     circ.append(int(re.search(r":\s*(\d+)\s*$", body).group(1)))
-    diag0 = int(re.search(r"i == 0 && j == 0 \? (\d+)", text).group(1))
+    diag0 = int(re.search(r"diag_coeff\(int i\) \{\s*return i == 0 \? "
+                          r"(\d+) : 0;", text).group(1))
+    return circ, [diag0] + [0] * (pg.WIDTH - 1)
+
+
+def compiled_mds() -> np.ndarray:
+    """The 12x12 MDS that poseidon_common.cuh compiles in (mds_coeff =
+    circ_coeff + diag_coeff on the diagonal)."""
+    circ, diag = compiled_circ_diag()
     w = pg.WIDTH
-    m = np.array([[circ[(j - i) % w] for j in range(w)] for i in range(w)])
-    m[0, 0] += diag0
-    return m
+    return np.array([[circ[(j - i) % w] + (diag[i] if i == j else 0)
+                      for j in range(w)] for i in range(w)])
 
 
 # ---- a Python-int model of the kernel's lazy arithmetic -------------------
@@ -88,18 +100,94 @@ def reduce96(v: int) -> int:
     return s
 
 
+LIMBS = ((0, 22), (22, 21), (43, 21))   # poseidon_common.cuh split_limbs
+
+
+def fold_limb_sums(sums, c) -> int:
+    """poseidon_common.cuh fold_limb_sums: each limb sum below 2^31,
+    recombined with the constant c and reduced once."""
+    assert all(0 <= x < 1 << 31 for x in sums)
+    return reduce96(sums[0] + (sums[1] << 22) + (sums[2] << 43) + int(c))
+
+
 def mds_fold_limbs(s, m, c):
-    """poseidon_common.cuh mds_fold_limbs: 22/21/21-bit limb sums, each
-    below 2^31, recombined with c and reduced once."""
-    out = []
-    for i in range(len(s)):
-        sums = [sum(int(m[i, j]) * ((s[j] >> sh) & ((1 << bits) - 1))
-                    for j in range(len(s)))
-                for sh, bits in ((0, 22), (22, 21), (43, 21))]
-        assert all(x < 1 << 31 for x in sums)
-        v = sums[0] + (sums[1] << 22) + (sums[2] << 43) + int(c[i])
-        out.append(reduce96(v))
-    return out
+    """poseidon_common.cuh mds_fold_limbs: the dense coefficients on the
+    22/21/21-bit limbs."""
+    return [fold_limb_sums([sum(int(m[i, j]) * ((s[j] >> sh) & ((1 << b) - 1))
+                                for j in range(len(s))) for sh, b in LIMBS],
+                           c[i])
+            for i in range(len(s))]
+
+
+def crt(a: int, b: int) -> int:
+    """poseidon_gl_2d.cuh crt: the lane that is a mod 3 and b mod 4."""
+    return (4 * a + 9 * b) % pg.WIDTH
+
+
+def freq_constants(circ) -> tuple:
+    """The DFT constants of poseidon_gl_2d.cuh circ_freq, derived from circ
+    in exact integers: F0/4, F2/4 (real) and F1/2 (Gaussian, (re, im)),
+    with F_f[a] = sum_b circ[crt(a, b)] i^(f b); each asserted exact."""
+    def f(f_, a):
+        re = im = 0
+        for b in range(4):
+            c, e = circ[crt(a, b)], f_ * b % 4
+            re += c if e == 0 else -c if e == 2 else 0
+            im += c if e == 1 else -c if e == 3 else 0
+        return re, im
+    out = {k: [f(k, a) for a in range(3)] for k in range(3)}
+    assert all(im == 0 for k in (0, 2) for _, im in out[k])
+    assert all(re % 4 == 0 for k in (0, 2) for re, _ in out[k])
+    assert all(x % 2 == 0 for z in out[1] for x in z)
+    return ([re // 4 for re, _ in out[0]], [re // 4 for re, _ in out[2]],
+            [(re // 2, im // 2) for re, im in out[1]])
+
+
+def circ_freq(x, consts, check=lambda v: v):
+    """poseidon_gl_2d.cuh circ_freq, step for step: y = circ x on one limb
+    array; `check` sees every intermediate."""
+    F0, F2, F1 = consts
+    s0, s2, s1r, s1i = [], [], [], []
+    for a in range(3):
+        xb = [x[crt(a, b)] for b in range(4)]
+        e0, e1 = check(xb[0] + xb[2]), check(xb[1] + xb[3])
+        s0.append(check(e0 + e1))
+        s2.append(check(e0 - e1))
+        s1r.append(check(xb[0] - xb[2]))
+        s1i.append(check(xb[3] - xb[1]))
+    y = [None] * len(x)
+    for a in range(3):
+        t0 = t2 = t1r = t1i = 0
+        for k in range(3):
+            j = (a + k) % 3
+            t0 = check(t0 + F0[k] * s0[j])
+            t2 = check(t2 + F2[k] * s2[j])
+            t1r = check(t1r + check(F1[k][0] * s1r[j] - F1[k][1] * s1i[j]))
+            t1i = check(t1i + check(F1[k][0] * s1i[j] + F1[k][1] * s1r[j]))
+        u, v = check(t0 + t2), check(t0 - t2)
+        y[crt(a, 0)], y[crt(a, 1)] = check(u + t1r), check(v - t1i)
+        y[crt(a, 2)], y[crt(a, 3)] = check(u - t1r), check(v + t1i)
+    return y
+
+
+def mds_freq_limbs(s, circ, diag, c):
+    """poseidon_gl_2d.cuh circulant::Mds: per limb array the circulant in
+    the frequency domain (every intermediate asserted inside int32) plus
+    diag_i l_i, then fold_limb_sums."""
+    consts = freq_constants(circ)
+
+    def check(v):
+        assert -(1 << 31) <= v < 1 << 31
+        return v
+
+    ys, limbs = [], []
+    for sh, b in LIMBS:
+        limb = [(x >> sh) & ((1 << b) - 1) for x in s]
+        limbs.append(limb)
+        ys.append(circ_freq(limb, consts, check))
+    return [fold_limb_sums([y[i] + diag[i] * limb[i]
+                            for y, limb in zip(ys, limbs)], c[i])
+            for i in range(len(s))]
 
 
 def sbox(x: int) -> int:
@@ -124,17 +212,19 @@ def sparse_rounds(s, fold, pre, w, v, m00):
     return [s[0]] + [add_lazy(x, int(c)) for x, c in zip(s[1:], last[1:])]
 
 
-def model_permute(state, rc0, fold, m, sparse):
-    """csrc/poseidon_gl.cu permute_lazy, round for round, then canonical;
-    `sparse` = poseidon_cuda.sparse_constants(M)."""
+def model_permute(state, rc0, fold, m, sparse, mds=None):
+    """csrc/poseidon_lazy.cuh permute_lazy, round for round, then
+    canonical; `sparse` = poseidon_cuda.sparse_constants(M), `mds(s, c)`
+    the full rounds' MDS (default: kernel 1's mds_fold_limbs with m)."""
     half, n_p = pc.ROUNDS_F // 2, pc.ROUNDS_P
+    mds = mds or (lambda s, c: mds_fold_limbs(s, m, c))
     s = [add_lazy(int(x), int(c)) for x, c in zip(state, rc0)]
     for r in range(pc.N_ROUNDS):
         if half <= r < half + n_p:
             if r == half:
                 s = sparse_rounds(s, fold, *sparse, int(m[0, 0]))
             continue
-        s = mds_fold_limbs([sbox(x) for x in s], m, fold[r])
+        s = mds([sbox(x) for x in s], fold[r])
     return [x - P if x >= P else x for x in s]
 
 
@@ -164,26 +254,79 @@ def test_fold_constants_schedule():
     assert all(int(v) < P for v in fold.reshape(-1))
 
 
-@pytest.mark.parametrize("kind", ["random", "edges", "non_canonical"])
-def test_kernel_model_matches_jax(kind):
+def model_states(kind: str, n: int = 6) -> np.ndarray:
+    """n test states of a kind: random canonical, the edges 0 and p - 1, or
+    any u64 (at and above p, and 2^64 - 1)."""
     rng = np.random.default_rng({"random": 11, "edges": 12,
                                  "non_canonical": 13}[kind])
     if kind == "random":
-        states = rng.integers(0, P, (6, 12), dtype=np.uint64)
-    elif kind == "edges":
-        states = np.stack([np.zeros(12, np.uint64),
-                           np.full(12, P - 1, np.uint64),
-                           np.array([0, P - 1] * 6, np.uint64)])
-    else:   # any u64: at and above p, and 2^64 - 1
-        states = rng.integers(0, 1 << 64, (4, 12), dtype=np.uint64)
-        states[0] = np.full(12, U64 - 1, np.uint64)
-        states[1, ::2] = P
+        return rng.integers(0, P, (n, 12), dtype=np.uint64)
+    if kind == "edges":
+        rows = [np.zeros(12, np.uint64), np.full(12, P - 1, np.uint64),
+                np.array([0, P - 1] * 6, np.uint64)]
+        return np.stack([rows[i % 3] for i in range(n)])
+    states = rng.integers(0, 1 << 64, (n, 12), dtype=np.uint64)
+    states[0] = np.full(12, U64 - 1, np.uint64)
+    states[1, ::2] = P
+    return states
+
+
+@pytest.mark.parametrize("kind", ["random", "edges", "non_canonical"])
+def test_kernel_model_matches_jax(kind):
+    states = model_states(kind, {"random": 6, "edges": 3,
+                                 "non_canonical": 4}[kind])
     C, M = pg.tables_host(pc.source())
     rc0, fold = poseidon_cuda.fold_constants(C, M)
     m = compiled_mds()
     sp = poseidon_cuda.sparse_constants(M)
     got = np.array([model_permute(s, rc0, fold, m, sp) for s in states],
                    dtype=np.uint64)
+    np.testing.assert_array_equal(got, _jax_permute(states))
+
+
+def test_compiled_circ_diag_matches_jax():
+    circ, diag = compiled_circ_diag()
+    assert jpp._circ_diag(np.asarray(jpgl._mds_coeffs(pc.source()))) == (
+        circ, diag)
+    tab = poseidon_cuda._host_tables(pc.source())
+    assert tab["circ"].tolist() == circ and tab["diag"].tolist() == diag
+
+
+def test_2d_frequency_form_is_the_circulant():
+    """circ_freq's constants from the JAX package's circ are the ones
+    poseidon_gl_2d.cuh notes, and as linear forms its 12 outputs are the
+    circulant's rows, every intermediate below 2^30 in magnitude on 22-bit
+    limbs (the bound: the sum of |coefficients| times the largest limb)."""
+    circ, _ = jpp._circ_diag(np.asarray(jpgl._mds_coeffs(pc.source())))
+    consts = freq_constants(circ)
+    assert consts == ([16, 16, 32], [-1, 2, 8], [(2, 1), (-16, 1), (-1, 4)])
+    w, top = pg.WIDTH, (1 << 22) - 1
+    largest = [0]
+
+    def bound(v):
+        largest[0] = max(largest[0], sum(abs(int(k)) for k in v) * top)
+        return v
+
+    forms = circ_freq([np.eye(w, dtype=np.int64)[j] for j in range(w)],
+                      consts, bound)
+    for i in range(w):
+        assert forms[i].tolist() == [circ[(j - i) % w] for j in range(w)]
+    assert largest[0] < 1 << 30
+
+
+@pytest.mark.parametrize("kind", ["random", "edges", "non_canonical"])
+def test_2d_model_matches_jax(kind):
+    states = model_states(kind, 4)
+    C, M = pg.tables_host(pc.source())
+    rc0, fold = poseidon_cuda.fold_constants(C, M)
+    circ, diag = compiled_circ_diag()
+    sp = poseidon_cuda.sparse_constants(M)
+
+    def mds(s, c):
+        return mds_freq_limbs(s, circ, diag, c)
+
+    got = np.array([model_permute(s, rc0, fold, compiled_mds(), sp, mds)
+                    for s in states], dtype=np.uint64)
     np.testing.assert_array_equal(got, _jax_permute(states))
 
 

@@ -1,7 +1,8 @@
 // Poseidon-Goldilocks width-12 permutation over a batch of states, and the
 // Merkle commit of a (H, W) source fused onto it (sm_90a). The library
-// built from this file also holds the "blocked" and "1d" kernels
-// (poseidon_gl_blocked.cuh, poseidon_gl_1d.cuh, included at the end): one
+// built from this file also holds the "2d", "mxu", "blocked" and "1d"
+// kernels (poseidon_gl_2d.cuh, poseidon_gl_mxu.cuh,
+// poseidon_gl_blocked.cuh, poseidon_gl_1d.cuh, included below): one
 // translation unit, so the lazy body's constant tables (poseidon_lazy.cuh)
 // exist once and poseidon_gl_set_constants fills them for every kernel.
 //
@@ -69,6 +70,9 @@ constexpr int THREADS = 128;
 constexpr int RATE = 8;
 constexpr int HASH = 4;
 
+// One thread per row-major state; Mds is the full rounds' MDS form (kernel
+// 1: DenseMds; mode 2d: the circulant form of poseidon_gl_2d.cuh).
+template <class Mds>
 __global__ void __launch_bounds__(THREADS, 5)
 permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                int64_t n) {
@@ -84,7 +88,7 @@ permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
     s[2 * j] = v.x;
     s[2 * j + 1] = v.y;
   }
-  permute_lazy(s);
+  permute_lazy<Mds>(s);
   ulonglong2* dst = reinterpret_cast<ulonglong2*>(out + i * WIDTH);
 #pragma unroll
   for (int j = 0; j < WIDTH / 2; ++j)
@@ -180,28 +184,44 @@ merkle_level_kernel(uint64_t* __restrict__ tree, int64_t h, int base,
 
 }  // namespace
 
+// The library's other four permutation kernels, on the same lazy body.
+#include "poseidon_gl_2d.cuh"
+#include "poseidon_gl_mxu.cuh"
+#include "poseidon_gl_blocked.cuh"
+#include "poseidon_gl_1d.cuh"
+
 // Load the constant set for every kernel of the library: rc0 the 12
 // constants of round 0, fold the 30 x 12 constants added after each round's
-// MDS (poseidon_cuda.fold_constants), mds the set's 12x12 MDS row-major,
-// which must be the compiled-in one, and pre, w, v the sparse partial
-// rounds (poseidon_cuda.sparse_constants).
+// MDS (poseidon_cuda.fold_constants), mds the set's 12x12 MDS row-major and
+// circ, diag its circulant + diagonal decomposition (poseidon_cuda
+// .circ_diag), which must be the compiled-in ones, pre, w, v the sparse
+// partial rounds (poseidon_cuda.sparse_constants) and mxu_b mode mxu's
+// (32, 16) u8 operand (poseidon_cuda.mma_operands).
 // Returns a cudaError_t code, or POSEIDON_GL_MDS_MISMATCH.
 #define POSEIDON_GL_MDS_MISMATCH (-1)
 extern "C" int poseidon_gl_set_constants(const uint64_t* rc0,
                                          const uint64_t* fold,
                                          const uint32_t* mds,
+                                         const uint32_t* circ,
+                                         const uint32_t* diag,
                                          const uint64_t* pre,
                                          const uint64_t* w,
-                                         const uint64_t* v) {
-  for (int i = 0; i < WIDTH; ++i)
+                                         const uint64_t* v,
+                                         const uint8_t* mxu_b) {
+  for (int i = 0; i < WIDTH; ++i) {
+    if (circ[i] != pos::circ_coeff(i) || diag[i] != pos::diag_coeff(i))
+      return POSEIDON_GL_MDS_MISMATCH;
     for (int j = 0; j < WIDTH; ++j)
       if (mds[i * WIDTH + j] != pos::mds_coeff(i, j))
         return POSEIDON_GL_MDS_MISMATCH;
+  }
   cudaError_t err = cudaMemcpyToSymbol(RC0, rc0, sizeof(RC0));
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(FOLD, fold, sizeof(FOLD));
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(SP_PRE, pre, sizeof(SP_PRE));
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(SP_W, w, sizeof(SP_W));
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(SP_V, v, sizeof(SP_V));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(mxu::MXU_B, mxu_b, sizeof(mxu::MXU_B));
   return static_cast<int>(err);
 }
 
@@ -211,8 +231,8 @@ extern "C" int poseidon_gl_permute(const uint64_t* in, uint64_t* out,
                                    long long n, void* stream) {
   if (n <= 0) return 0;
   long long blocks = (n + THREADS - 1) / THREADS;
-  permute_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(in, out, n);
+  permute_kernel<DenseMds><<<static_cast<unsigned>(blocks), THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(in, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -241,7 +261,3 @@ extern "C" int poseidon_gl_merkle(const uint64_t* src, long long row_stride,
   }
   return static_cast<int>(cudaGetLastError());
 }
-
-// The library's other two permutation kernels, on the same lazy body.
-#include "poseidon_gl_blocked.cuh"
-#include "poseidon_gl_1d.cuh"

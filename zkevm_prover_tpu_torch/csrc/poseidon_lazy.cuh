@@ -3,15 +3,19 @@
 //
 // One copy of it serves every kernel of the poseidon_gl library
 // (poseidon_gl.cu: the mxu96 permutation and the fused Merkle commit;
-// poseidon_gl_blocked.cuh; poseidon_gl_1d.cuh), which are one translation
-// unit: poseidon_gl.cu includes this header and the other two, so the
-// constant tables below exist once and poseidon_gl_set_constants fills them
-// for all of them. The schedule:
+// poseidon_gl_2d.cuh, poseidon_gl_mxu.cuh, poseidon_gl_blocked.cuh,
+// poseidon_gl_1d.cuh), which are one translation unit: poseidon_gl.cu
+// includes this header and the other four, so the constant tables below
+// exist once and poseidon_gl_set_constants fills them for all of them. The
+// schedule:
 //  - RC0 added before round 0; FOLD[r] added inside round r's MDS reduction
 //    (poseidon_cuda.fold_constants: every partial round's constants but
 //    lane 0's pushed forward into the first full round after them);
 //  - the full rounds' MDS with the reference coefficients compiled in as
-//    immediates on 22/21/21-bit limbs (poseidon_common.cuh mds_fold_limbs);
+//    immediates on 22/21/21-bit limbs (poseidon_common.cuh mds_fold_limbs;
+//    a kernel may pass another form of the same matrix as `Mds`, as 2d
+//    does; mxu runs the full rounds in its own layout and takes only the
+//    partial rounds from here);
 //  - the 22 partial rounds' MDS factored sparse (the Poseidon paper's
 //    appendix B; poseidon_cuda.sparse_constants: SP_PRE, SP_W, SP_V);
 //  - one rolled loop body for all eight full rounds (unrolled copies ran
@@ -34,10 +38,19 @@ __constant__ uint64_t SP_PRE[kHat * kHat];        // lanes 1..11, round 3
 __constant__ uint64_t SP_W[pos::ROUNDS_P * kHat];  // row 0, lanes 1..11
 __constant__ uint64_t SP_V[pos::ROUNDS_P * kHat];  // column 0, lanes 1..11
 
+// The full rounds' MDS of kernel 1: the dense coefficients as immediates.
+struct DenseMds {
+  __device__ __forceinline__ void operator()(uint64_t s[WIDTH],
+                                             const uint64_t* c) const {
+    pos::mds_fold_limbs(s, c);
+  }
+};
+
+template <class Mds>
 __device__ __forceinline__ void full_round(uint64_t s[WIDTH], int r) {
 #pragma unroll
   for (int j = 0; j < WIDTH; ++j) s[j] = pos::sbox_lazy(s[j]);
-  pos::mds_fold_limbs(s, FOLD + r * WIDTH);
+  Mds()(s, FOLD + r * WIDTH);
 }
 
 // The 22 partial rounds, their MDS factored sparse (poseidon_cuda
@@ -80,14 +93,16 @@ __device__ __forceinline__ void partial_rounds(uint64_t s[WIDTH]) {
     s[j] = gl::add_lazy(s[j], FOLD[kLast * WIDTH + j]);
 }
 
-// The permutation of one lazy state, left lazy.
+// The permutation of one lazy state, left lazy; Mds(s, c) sets s <- M s + c
+// for the full rounds.
+template <class Mds = DenseMds>
 __device__ __forceinline__ void permute_lazy(uint64_t s[WIDTH]) {
 #pragma unroll
   for (int j = 0; j < WIDTH; ++j) s[j] = gl::add_lazy(s[j], RC0[j]);
   // one copy of the full-round code for both halves
 #pragma unroll 1
   for (int r = 0; r < pos::N_ROUNDS;) {
-    full_round(s, r);
+    full_round<Mds>(s, r);
     if (++r == pos::HALF_F) {
       partial_rounds(s);
       r += pos::ROUNDS_P;

@@ -9,20 +9,20 @@ out as its kernel takes it, pads it to its own tile, and adds one to
 
   mode      kernel (csrc/)            layout it takes              pad to
   mxu96     poseidon_gl.cu            (H, 12) row-major            1
+  2d        poseidon_gl_2d.cuh        (H, 12) row-major            1
+  mxu       poseidon_gl_mxu.cuh       (H, 12) row-major            1
   blocked   poseidon_gl_blocked.cuh   (H, 12) row-major            1
   1d        poseidon_gl_1d.cuh        (12, H) lane-major           1
-  2d        poseidon_gl_soa.cu        (12, H) lane-major           512
-  mxu       poseidon_gl_mma.cu        (12, H) lane-major           1024
   mxu24     poseidon_gl_mma.cu        (24, H/2): two halves stacked 2048
 
-mxu96, blocked and 1d are one library (`poseidon_gl.cu` includes the other
-two sources) on one lazy permutation body (`poseidon_lazy.cuh`): the
-reference MDS compiled in, the tables derived here (`fold_constants`,
-`sparse_constants`), loaded once for all three, and a constant set with
-another MDS refused. Their kernels take any H; `launch` runs one of them on
-a batch already in its layout. The other padding multiples are the JAX
-package's (`poseidon_pallas.permute`), and those three kernels read the
-constant set from runtime tables (`poseidon_tables.cuh`). Every entry point
+mxu96, 2d, mxu, blocked and 1d are one library (`poseidon_gl.cu` includes
+the other four sources) on one lazy permutation body (`poseidon_lazy.cuh`):
+the reference MDS compiled in, the tables derived here (`fold_constants`,
+`sparse_constants`, `circ_diag`, `mma_operands`), loaded once for all five,
+and a constant set with another MDS refused. Their kernels take any H;
+`launch` runs one of them on a batch already in its layout. mxu24 pads to
+the JAX package's multiple (`poseidon_pallas.permute`) and reads the round
+constants from a runtime table (`poseidon_tables.cuh`). Every entry point
 checks what its kernel takes and raises on anything else, and `permute`
 raises on an unknown mode: nothing falls back to another mode or to the
 plain version. Each kernel's note says what TPU kernel it replaces and what
@@ -52,17 +52,19 @@ MODE = "mxu96"
 launches = {mode: 0 for mode in MODES}
 launches["merkle"] = 0
 
-PAD = {"1d": 1, "2d": 512, "blocked": 1, "mxu": 1024, "mxu24": 2 * 1024,
+PAD = {"1d": 1, "2d": 1, "blocked": 1, "mxu": 1, "mxu24": 2 * 1024,
        "mxu96": 1}
 
 # kernel library of each mode (cuda_build.KERNELS names)
-LIBRARY = {"1d": "poseidon_gl", "2d": "poseidon_gl_soa",
-           "blocked": "poseidon_gl", "mxu": "poseidon_gl_mma",
+LIBRARY = {"1d": "poseidon_gl", "2d": "poseidon_gl",
+           "blocked": "poseidon_gl", "mxu": "poseidon_gl",
            "mxu24": "poseidon_gl_mma", "mxu96": "poseidon_gl"}
 
 # the poseidon_gl library's permutation entry points, each (in, out, n,
 # stream) on its mode's own layout
 _GL_PERMUTE = {"mxu96": "poseidon_gl_permute",
+               "2d": "poseidon_gl_2d_permute",
+               "mxu": "poseidon_gl_mxu_permute",
                "blocked": "poseidon_gl_blocked_permute",
                "1d": "poseidon_gl_1d_permute"}
 
@@ -74,13 +76,14 @@ _I = ctypes.c_int
 _MERKLE_ARGTYPES = [_P, _LL, _LL, _LL, _P, _LL, _I, _I, _LL, _I, _I, _I, _P]
 _FUNCTIONS = {  # argument types of each library's entry points
     "poseidon_gl": {**{fn: [_P, _P, _LL, _P] for fn in _GL_PERMUTE.values()},
-                    "poseidon_gl_set_constants": [_P] * 6,
+                    "poseidon_gl_set_constants": [_P] * 9,
                     "poseidon_gl_merkle": _MERKLE_ARGTYPES},
-    "poseidon_gl_soa": {"poseidon_gl_soa_permute": [_P, _P, _LL, _P],
-                        "poseidon_gl_soa_set_constants": [_P] * 3},
-    "poseidon_gl_mma": {"poseidon_gl_mma_permute": [_P, _P, _LL, _I, _P],
-                        "poseidon_gl_mma_set_constants": [_P] * 5},
+    "poseidon_gl_mma": {"poseidon_gl_mma_permute": [_P, _P, _LL, _P],
+                        "poseidon_gl_mma_set_constants": [_P] * 2},
 }
+# the host tables poseidon_gl_set_constants takes, in its order
+GL_CONSTANTS = ("rc0", "fold", "mds", "circ", "diag", "sp_pre", "sp_w",
+                "sp_v", "mxu_b")
 MERKLE_THREADS = 128   # csrc/poseidon_gl.cu THREADS
 _MDS_MISMATCH = -1     # csrc/poseidon_gl.cu POSEIDON_GL_MDS_MISMATCH
 
@@ -188,20 +191,34 @@ def circ_diag(coeffs: np.ndarray):
     return circ, diag
 
 
+# mode mxu's k-slots and n columns (csrc/poseidon_gl_mxu.cuh): lane (g, t)
+# of a warp holds input lanes 3t..3t+2 at k-slots 4t..4t+2 of its A
+# fragment, and the C fragment gives it columns 2t, 2t+1 of n8 tile 0 and
+# 2t of tile 1, which are made its output lanes 3t, 3t+1 and 3t+2.
+MXU_K_LANE = [3 * (k // 4) + k % 4 if k < 16 and k % 4 < 3 else None
+              for k in range(32)]
+MXU_N_LANE = ([3 * (n // 2) + n % 2 for n in range(8)]
+              + [3 * (n // 2) + 2 if n % 2 == 0 else None for n in range(8)])
+
+
 def mma_operands(coeffs: np.ndarray):
-    """The fixed u8 tensor-core operands of the mxu kernels: mxu's
-    A = M padded to (16, 32) (row = output lane, column = input lane) and
-    mxu24's B = blockdiag(M^T, M^T) padded to (32, 24) (row = k, column =
-    n). None if an entry does not fit u8."""
+    """The fixed u8 tensor-core operands: mode mxu's B = M^T with its k-slots
+    and columns permuted, (32, 16) (B[k, n] = M[MXU_N_LANE[n],
+    MXU_K_LANE[k]], zero where either is None), and mxu24's
+    B = blockdiag(M^T, M^T) padded to (32, 24) (row = k, column = n). None
+    if an entry does not fit u8."""
     if int(coeffs.max()) > 255:
         return None
     w = pg.WIDTH
-    a = np.zeros((16, 32), dtype=np.uint8)
-    a[:w, :w] = coeffs
+    mxu = np.zeros((32, 16), dtype=np.uint8)
+    for k, i in enumerate(MXU_K_LANE):
+        for n, o in enumerate(MXU_N_LANE):
+            if i is not None and o is not None:
+                mxu[k, n] = coeffs[o, i]
     b = np.zeros((32, 24), dtype=np.uint8)
     b[:w, :w] = coeffs.T
     b[w:2 * w, w:2 * w] = coeffs.T
-    return a, b
+    return mxu, b
 
 
 @functools.lru_cache(maxsize=4)
@@ -215,6 +232,9 @@ def _host_tables(source: str):
     circ, diag = cd if cd is not None else ([0] * pg.WIDTH, [0] * pg.WIDTH)
     rc0, fold = fold_constants(C, M)
     pre, w, v = sparse_constants(M)
+    mma = mma_operands(coeffs)
+    mxu, mxu24 = mma if mma is not None else (np.zeros((32, 16), np.uint8),
+                                              None)
     return {"rc": np.ascontiguousarray(C.reshape(-1), dtype=np.uint64),
             "rc0": rc0, "fold": np.ascontiguousarray(fold.reshape(-1)),
             "sp_pre": np.ascontiguousarray(pre.reshape(-1)),
@@ -223,8 +243,7 @@ def _host_tables(source: str):
             "mds": np.ascontiguousarray(coeffs, dtype=np.uint32),
             "circ": np.array(circ, dtype=np.uint32),
             "diag": np.array(diag, dtype=np.uint32),
-            "has_circ_diag": cd is not None,
-            "mma": mma_operands(coeffs)}
+            "mxu_b": mxu, "mxu24_b": mxu24}
 
 
 def _library(mode: str):
@@ -240,22 +259,18 @@ def _library(mode: str):
     lib = _libs[name]
     source = pc.source()
     tab = _host_tables(source)
-    if mode == "2d" and not tab["has_circ_diag"]:
-        raise ValueError(f"mode 2d needs a circulant + diagonal MDS; constant "
-                         f"set {source!r} has none")
-    if mode in ("mxu", "mxu24") and tab["mma"] is None:
+    if mode == "mxu24" and tab["mxu24_b"] is None:
         raise ValueError(f"mode {mode} needs MDS entries below 256")
     if _constants_source.get(name) != source:
-        keys = (("rc0", "fold", "mds", "sp_pre", "sp_w", "sp_v")
-                if name == "poseidon_gl" else ("rc", "circ", "diag"))
-        ptrs = [tab[k].ctypes.data for k in keys]
-        if name == "poseidon_gl_mma":
-            ptrs += [op.ctypes.data for op in tab["mma"]]
-        err = getattr(lib, f"{name}_set_constants")(*ptrs)
+        # a set with no circulant + diagonal form passes zeros, refused
+        keys = GL_CONSTANTS if name == "poseidon_gl" else ("rc", "mxu24_b")
+        err = getattr(lib, f"{name}_set_constants")(
+            *[tab[k].ctypes.data for k in keys])
         if name == "poseidon_gl" and err == _MDS_MISMATCH:
             raise ValueError(f"constant set {source!r} does not have the MDS "
                              "compiled into csrc/poseidon_gl.cu (modes mxu96, "
-                             "blocked and 1d, and the fused Merkle commit)")
+                             "2d, mxu, blocked and 1d, and the fused Merkle "
+                             "commit)")
         if err:
             raise RuntimeError(f"{name}_set_constants failed: cudaError {err}")
         _constants_source[name] = source
@@ -282,26 +297,9 @@ def _padded(states: torch.Tensor, mode: str) -> torch.Tensor:
     return states if states.data_ptr() % 16 == 0 else states.clone()
 
 
-def _launch(mode: str, states: torch.Tensor, fn) -> torch.Tensor:
-    """Check, lay out (fn: (lib, stream, states) -> out, launching once),
-    count."""
-    _check(states)
-    lib = _library(mode)
-    if states.shape[0] == 0:
-        return torch.empty_like(states)
-    stream = torch.cuda.current_stream(states.device).cuda_stream
-    with torch.cuda.device(states.device):
-        out, err = fn(lib, stream, states)
-    if err:
-        raise RuntimeError(f"{LIBRARY[mode]}_permute ({mode}) launch failed: "
-                           f"cudaError {err}")
-    launches[mode] += 1
-    return out
-
-
 def launch(mode: str, x: torch.Tensor, out: torch.Tensor) -> None:
-    """One launch of the poseidon_gl library's `mode` kernel (mxu96,
-    blocked or 1d) from x into out, both already in that kernel's layout:
+    """One launch of the poseidon_gl library's `mode` kernel (mxu96, 2d,
+    mxu, blocked or 1d) from x into out, both already in that kernel's layout:
     (H, 12) row-major, or (12, H) lane-major for 1d; int64, contiguous and
     16-byte aligned on one card. Counted in launches[mode]. The mode's
     entry point lays the batch out and calls this."""
@@ -363,49 +361,41 @@ def permute_1d(states: torch.Tensor) -> torch.Tensor:
     return _permute_gl("1d", states)
 
 
-def _lane_major(mode: str, fn):
-    """Run fn(lib, stream, xt) -> (out_t, err) on the padded (12, B)
-    transpose and return the (H, 12) result."""
-    def run(lib, stream, x):
-        h = x.shape[0]
-        xt = _padded(x, mode).T.contiguous()
-        out_t, err = fn(lib, stream, xt)
-        return out_t.T[:h].contiguous(), err
-    return run
-
-
 def permute_2d(states: torch.Tensor) -> torch.Tensor:
-    """(H, 12) states through csrc/poseidon_gl_soa.cu with the circulant +
-    diagonal MDS: (12, H) lane-major, padded to 512."""
-    def run(lib, stream, xt):
-        out = torch.empty_like(xt)
-        return out, lib.poseidon_gl_soa_permute(
-            xt.data_ptr(), out.data_ptr(), xt.shape[1], stream)
-    return _launch("2d", states, _lane_major("2d", run))
+    """(H, 12) states through csrc/poseidon_gl_2d.cuh: row-major, the full
+    rounds' MDS in its circulant + diagonal form, any H."""
+    return _permute_gl("2d", states)
 
 
 def permute_mxu(states: torch.Tensor) -> torch.Tensor:
-    """(H, 12) states through csrc/poseidon_gl_mma.cu, MDS as M (x) byte
-    planes: (12, H) lane-major, padded to 1024."""
-    def run(lib, stream, xt):
-        out = torch.empty_like(xt)
-        return out, lib.poseidon_gl_mma_permute(
-            xt.data_ptr(), out.data_ptr(), xt.shape[1], 0, stream)
-    return _launch("mxu", states, _lane_major("mxu", run))
+    """(H, 12) states through csrc/poseidon_gl_mxu.cuh: row-major, the full
+    rounds' MDS as byte-plane products on the tensor cores, any H."""
+    return _permute_gl("mxu", states)
 
 
 def permute_mxu24(states: torch.Tensor) -> torch.Tensor:
     """(H, 12) states through csrc/poseidon_gl_mma.cu, byte-plane pairs
     against blockdiag(M^T, M^T): the (12, H) transpose padded to 2048 with
     its two halves stacked as (24, H/2)."""
-    def run(lib, stream, xt):
-        half = xt.shape[1] // 2
-        stacked = torch.cat([xt[:, :half], xt[:, half:]], dim=0)
-        out = torch.empty_like(stacked)
-        err = lib.poseidon_gl_mma_permute(
-            stacked.data_ptr(), out.data_ptr(), xt.shape[1], 1, stream)
-        return torch.cat([out[:pg.WIDTH], out[pg.WIDTH:]], dim=1), err
-    return _launch("mxu24", states, _lane_major("mxu24", run))
+    _check(states)
+    lib = _library("mxu24")
+    h = states.shape[0]
+    if h == 0:
+        return torch.empty_like(states)
+    xt = _padded(states, "mxu24").T.contiguous()
+    half = xt.shape[1] // 2
+    stacked = torch.cat([xt[:, :half], xt[:, half:]], dim=0)
+    out = torch.empty_like(stacked)
+    stream = torch.cuda.current_stream(states.device).cuda_stream
+    with torch.cuda.device(states.device):
+        err = lib.poseidon_gl_mma_permute(stacked.data_ptr(), out.data_ptr(),
+                                          xt.shape[1], stream)
+    if err:
+        raise RuntimeError(f"poseidon_gl_mma_permute (mxu24) launch failed: "
+                           f"cudaError {err}")
+    launches["mxu24"] += 1
+    out_t = torch.cat([out[:pg.WIDTH], out[pg.WIDTH:]], dim=1)
+    return out_t.T[:h].contiguous()
 
 
 ENTRY = {"1d": permute_1d, "2d": permute_2d, "blocked": permute_blocked,

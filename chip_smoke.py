@@ -8,18 +8,20 @@ one bit at a time, each cut printed with its reason):
 
  1. card line: name and power limit from nvidia-smi;
  2. build every CUDA kernel of the port from `zkevm_prover_tpu_torch/csrc`
-    (one nvcc per source, all at once);
+    (one nvcc per library source, all at once: today the one poseidon_gl
+    library);
  3. every Poseidon mode's kernel (`poseidon_cuda.MODES`) against the plain
     torch permutation on the card, bit for bit: the r05 batch (pinned
     checksum), 515 random + 2 edge states, 2^22 states and a ragged
     2^20 + 37; each timed through its entry point at 2^10, 2^16, 2^20 and
     2^22 states beside the plain time and the bound (`poseidon_bound`: the
-    S-boxes' IMADs, the MDS on the tensor cores), and the poseidon_gl
-    library's kernels (mxu96, 2d, mxu, blocked, 1d) also alone, through
-    `poseidon_cuda.launch` on a batch already in their layout (for 1d the
-    difference is the entry point's two transposes), each beside mxu96
-    alone in the same process (2d and mxu differ from it in the full
-    rounds' MDS form alone); then the pinned r05 LDE checksum
+    S-boxes' IMADs, the MDS on the tensor cores), and each kernel also
+    alone, through `poseidon_cuda.launch` on a batch already in its layout
+    (for 1d the difference is the entry point's two transposes), each
+    beside mxu96 alone in the same process (2d, mxu and mxu24 differ from
+    it in the full rounds' MDS form alone) and mxu24 beside mxu alone (the
+    same kernel body, one plane or a plane pair per MMA); then the pinned
+    r05 LDE checksum
     (2^23 -> 2^24 x 4, plain torch);
  3b. the fused Merkle commit (`poseidon_cuda.merkle_levels`, the second
     kernel of csrc/poseidon_gl.cu) bit for bit against the plain tree
@@ -149,7 +151,7 @@ MODE_KERNELS = {
     "mxu96": ("zkevm_prover_tpu/ops/poseidon_pallas.py:314",
               "zkevm_prover_tpu_torch/csrc/poseidon_gl.cu"),
     "mxu24": ("zkevm_prover_tpu/ops/poseidon_pallas.py:159",
-              "zkevm_prover_tpu_torch/csrc/poseidon_gl_mma.cu"),
+              "zkevm_prover_tpu_torch/csrc/poseidon_gl_mxu24.cuh"),
     "mxu": ("zkevm_prover_tpu/ops/poseidon_pallas.py:594",
             "zkevm_prover_tpu_torch/csrc/poseidon_gl_mxu.cuh"),
     "blocked": ("zkevm_prover_tpu/ops/poseidon_pallas.py:532",
@@ -159,13 +161,12 @@ MODE_KERNELS = {
     "2d": ("zkevm_prover_tpu/ops/poseidon_pallas.py:450",
            "zkevm_prover_tpu_torch/csrc/poseidon_gl_2d.cuh"),
 }
-# the modes whose kernels are in the poseidon_gl library, timed alone too
-GL_LIBRARY_MODES = ("mxu96", "2d", "mxu", "blocked", "1d")
 # m16n8k32 MMAs per permutation and their useful share of multiply-adds:
 # mxu (csrc/poseidon_gl_mxu.cuh) 8 full rounds x 8 planes x 2 n8 tiles / 16
-# states, 16 x 144 of 2 x 4096; mxu24 (csrc/poseidon_gl_mma.cu) 30 rounds
-# x 4 plane pairs x 3 n8 tiles / 16 states, 4608 of 12288
-MMA_PER_PERM = {"mxu": (8.0, 2304 / 8192), "mxu24": (22.5, 4608 / 12288)}
+# states, 16 x 144 of 2 x 4096; mxu24 (csrc/poseidon_gl_mxu24.cuh) 8 full
+# rounds x 4 plane pairs x 3 n8 tiles / 16 states, 16 x 2 x 144 of
+# 3 x 4096
+MMA_PER_PERM = {"mxu": (8.0, 2304 / 8192), "mxu24": (6.0, 4608 / 12288)}
 
 
 def check_poseidon(torch, gl, pg, pcu) -> dict:
@@ -210,7 +211,7 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
          "(MDS, tensor cores), 192 bytes")
 
     times = {mode: {} for mode in pcu.MODES}
-    alone = {mode: {} for mode in GL_LIBRARY_MODES}
+    alone = {mode: {} for mode in pcu.MODES}
     plain_times = {}
     for bits in (10, 16, 20, 22):
         x = gl.from_u64(big[:1 << bits], "cuda")
@@ -226,7 +227,7 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
              f"{', '.join(line)}; plain {plain_times[bits]:.3f}; bound "
              f"{bound_ms:.4f} ({bound_by})")
         line = []
-        for mode in GL_LIBRARY_MODES:
+        for mode in pcu.MODES:
             laid = x.T.contiguous() if mode == "1d" else x
             out = torch.empty_like(laid)
             alone[mode][bits] = _time_ms(lambda: pcu.launch(mode, laid, out))
@@ -237,9 +238,10 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
         _log(f"poseidon 2^{bits} states, kernel alone on its own layout, ms "
              f"(share of bound; entry point - alone): {', '.join(line)}")
         ratios = [f"{mode} {alone[mode][bits] / alone['mxu96'][bits]:.4f}"
-                  for mode in GL_LIBRARY_MODES if mode != "mxu96"]
+                  for mode in pcu.MODES if mode != "mxu96"]
         _log(f"poseidon 2^{bits} states, kernel alone / mxu96 alone: "
-             f"{', '.join(ratios)}")
+             f"{', '.join(ratios)}; mxu24 alone / mxu alone: "
+             f"{alone['mxu24'][bits] / alone['mxu'][bits]:.4f}")
     entries = {}   # at 2^22 states, the last size timed
     for mode in pcu.MODES:
         replaces, source = MODE_KERNELS[mode]
@@ -250,9 +252,7 @@ def check_poseidon(torch, gl, pg, pcu) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_imad_per_perm": POSEIDON_IMAD,
             "bound_int8_ops_per_perm": POSEIDON_TENSOR_OPS,
-            "library_ms": None}
-        if mode in alone:
-            entries[mode]["kernel_alone_ms"] = alone[mode][22]
+            "library_ms": None, "kernel_alone_ms": alone[mode][22]}
     return entries
 
 

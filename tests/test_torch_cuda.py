@@ -46,11 +46,11 @@ def test_kernel_matches_plain(card, h):
     assert torch.equal(out, pos.permute_plain(x))
 
 
-# Every mode at two heights; the modes that take any H (the poseidon_gl
-# library's but mxu96, which test_kernel_matches_plain covers: blocked's
-# tiles of 128 states, 2d's and 1d's blocks of 128 threads, mxu's warps of
-# 32 states in two m16 tiles) also at ragged ones: 31 and 33 a part-filled
-# warp and m16 tile of mxu, the last giving blocked's persistent grid
+# Every mode at two heights; every mode but mxu96, which
+# test_kernel_matches_plain covers, also at ragged ones (blocked's tiles of
+# 128 states, 2d's and 1d's blocks of 128 threads, mxu's and mxu24's warps
+# of 32 states in two m16 tiles): 31 and 33 a part-filled warp and m16 tile
+# of mxu and mxu24, the last giving blocked's persistent grid
 # (132 SMs x 5 blocks on the H100) more tiles than blocks, so each block
 # reuses its ring slots.
 RAGGED = [1, 31, 33, 127, 129, 16385, (1 << 16) + 3, 3 * (1 << 17) + 5]
@@ -58,7 +58,8 @@ RAGGED = [1, 31, 33, 127, 129, 16385, (1 << 16) + 3, 3 * (1 << 17) + 5]
 
 @pytest.mark.parametrize("mode,h", [(m, h) for m in poseidon_cuda.MODES
                                     for h in (517, 1 << 16)]
-                         + [(m, h) for m in ("blocked", "1d", "2d", "mxu")
+                         + [(m, h) for m in ("blocked", "1d", "2d", "mxu",
+                                             "mxu24")
                             for h in RAGGED])
 def test_mode_kernel_matches_plain(card, mode, h):
     rng = np.random.default_rng(h)
@@ -151,7 +152,7 @@ def test_fused_merkle_rejects_what_it_does_not_take(card):
 
 def test_kernel_refuses_another_mds(card):
     x = torch.zeros((8, 12), dtype=torch.int64, device=card)
-    lazy = ("mxu96", "2d", "mxu", "blocked", "1d")   # the poseidon_gl library's
+    lazy = ("mxu96", "2d", "mxu", "mxu24", "blocked", "1d")   # poseidon_gl's
     before = dict(poseidon_cuda.launches)
     try:
         pc.load_constants("placeholder")
@@ -167,7 +168,8 @@ def test_kernel_refuses_another_mds(card):
         assert torch.equal(poseidon_cuda.ENTRY[mode](x), pos.permute_plain(x))
 
 
-@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "blocked", "1d"])
+@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "mxu24", "blocked",
+                                  "1d"])
 def test_launch_takes_the_laid_out_batch(card, mode):
     states = np.random.default_rng(11).integers(0, gl.P, (300, 12),
                                                 dtype=np.uint64)
@@ -187,7 +189,8 @@ def test_launch_takes_the_laid_out_batch(card, mode):
     assert poseidon_cuda.launches[mode] == before + 1
 
 
-@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "blocked", "1d"])
+@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "mxu24", "blocked",
+                                  "1d"])
 def test_failed_launch_raises_uncounted(card, mode, monkeypatch):
     x = torch.zeros((8, 12), dtype=torch.int64, device=card)
     poseidon_cuda.ENTRY[mode](x)   # the library is loaded

@@ -103,8 +103,8 @@ def test_kernel_ab_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the refusal where CUDA is absent")
     with pytest.raises(SystemExit):
-        kernel_ab.main(["mxu24", "lib.so"])   # not a poseidon_gl mode
+        kernel_ab.main(["mxu128", "lib.so"])   # not a poseidon_gl mode
     assert kernel_ab.main(["2d", "lib.so"]) == 2
     assert "ms" not in capsys.readouterr().out
     assert sorted(poseidon_cuda._GL_PERMUTE) == ["1d", "2d", "blocked",
-                                                "mxu", "mxu96"]
+                                                "mxu", "mxu24", "mxu96"]

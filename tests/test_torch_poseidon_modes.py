@@ -50,7 +50,8 @@ def test_dense_mds_matches_jax():
     tab = poseidon_cuda._host_tables(pc.source())
     np.testing.assert_array_equal(tab["mds"], _jax_coeffs())
     C, _ = jpgl._tables_host(pc.source())
-    np.testing.assert_array_equal(tab["rc"], np.asarray(C).reshape(-1))
+    np.testing.assert_array_equal(pg.tables_host(pc.source())[0],
+                                  np.asarray(C))
 
 
 def test_circ_diag_matches_jax():
@@ -86,18 +87,27 @@ def test_mxu_operand_matches_jax():
 def test_mxu24_operand_matches_jax():
     _, b = poseidon_cuda.mma_operands(pg.mds_coeffs(pc.source()))
     jax_a = _jax_operand("mxu24")    # I_8 (x) blockdiag(M, M) padded to 256
-    assert b.shape == (32, 24) and not b[24:].any()
+    w = pg.WIDTH
+    # B = blockdiag(M^T, M^T) on the kernel's k-slots (rows) and output
+    # columns, each an (input or output lane, plane parity): index
+    # 12 parity + lane of JAX's 24 x 24 block
+    k = [i for i, kl in enumerate(poseidon_cuda.MXU24_K_LANE) if kl is not None]
+    ins = [w * e + lane for lane, e in
+           (poseidon_cuda.MXU24_K_LANE[i] for i in k)]
+    outs = [w * e + lane for lane, e in poseidon_cuda.MXU24_N_LANE]
+    assert sorted(ins) == sorted(outs) == list(range(2 * w))
+    assert b.shape == (32, 24) and b.sum() == b[k].sum()
     for t in range(jpp.N_LIMB8):
-        np.testing.assert_array_equal(
-            jax_a[t * 24:(t + 1) * 24, t * 24:(t + 1) * 24], b[:24, :24].T)
+        block = jax_a[t * 24:(t + 1) * 24, t * 24:(t + 1) * 24]
+        np.testing.assert_array_equal(b[k], block[np.ix_(outs, ins)].T)
 
 
 def test_padding_multiples_match_jax():
-    # the runtime-table kernel (mxu24) keeps the TPU tile's multiple; the
-    # five kernels of the poseidon_gl library (the lazy body) take any H
-    assert poseidon_cuda.PAD["mxu24"] == 2 * jpp.MXU_LANES
-    assert poseidon_cuda.LIBRARY["mxu24"] == "poseidon_gl_mma"
-    for mode in ("mxu96", "2d", "mxu", "blocked", "1d"):
+    # the JAX package pads mxu24's batch to two of its 1024-lane tiles
+    # (its two halves stacked); every kernel of the port's one library, on
+    # the lazy body, takes any H
+    assert 2 * jpp.MXU_LANES == 2048
+    for mode in poseidon_cuda.MODES:
         assert poseidon_cuda.PAD[mode] == 1
         assert poseidon_cuda.LIBRARY[mode] == "poseidon_gl"
 
@@ -114,7 +124,8 @@ def test_wrappers_refuse_cpu_tensors(mode):
     assert poseidon_cuda.launches == before
 
 
-@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "blocked", "1d"])
+@pytest.mark.parametrize("mode", ["mxu96", "2d", "mxu", "mxu24", "blocked",
+                                  "1d"])
 def test_launch_refuses_cpu_tensors(mode):
     before = dict(poseidon_cuda.launches)
     x = torch.zeros((12, 12), dtype=torch.int64)
@@ -123,7 +134,7 @@ def test_launch_refuses_cpu_tensors(mode):
     assert poseidon_cuda.launches == before
 
 
-@pytest.mark.parametrize("mode", ["mxu24", "mxu128"])
+@pytest.mark.parametrize("mode", ["mxu128"])
 def test_launch_takes_only_the_lazy_library(mode):
     x = torch.zeros((12, 12), dtype=torch.int64)
     with pytest.raises(ValueError, match="launch takes the modes"):

@@ -1,18 +1,20 @@
-"""Mode mxu's kernel (csrc/poseidon_gl_mxu.cuh), modelled on the CPU before
-the card sees it: the m16n8k32 u8 fragment maps of the PTX ISA with the
-kernel's k-slot and column permutation (`poseidon_cuda.mma_operands`), the
-byte-plane products and their recombination with the FOLD constants, the
-two layout changes through the warp's shared tile, and the whole schedule
-(full rounds in fragment layout, the sparse partial rounds one state per
-lane), held against JAX `poseidon_gl.permute` bit for bit with a range
-assert on every intermediate. Tolerance 0 throughout: the results are exact
-integers. The operand itself is held against the JAX package's I_8 (x) M
-in test_torch_poseidon_modes.py (test_mxu_operand_matches_jax)."""
+"""Modes mxu and mxu24 (csrc/poseidon_gl_mxu.cuh, csrc/poseidon_gl_mxu24.cuh),
+modelled on the CPU before the card sees them: the m16n8k32 u8 fragment
+maps of the PTX ISA with each kernel's k-slot and column permutation
+(`poseidon_cuda.mma_operands`), the byte-plane products (mxu: one plane per
+MMA; mxu24: a plane pair side by side in k, packed by byte permutes) and
+their recombination with the FOLD constants, the two layout changes through
+the warp's shared tile, and the whole schedule (full rounds in fragment
+layout, the sparse partial rounds one state per lane), held against JAX
+`poseidon_gl.permute` bit for bit with a range assert on every
+intermediate. Tolerance 0 throughout: the results are exact integers. The
+operands themselves are held against the JAX package's I_8 (x) M and
+I_8 (x) blockdiag(M, M) in test_torch_poseidon_modes.py."""
 
 import numpy as np
 import pytest
 
-from test_torch_poseidon_tables import (P, _jax_permute, add_lazy,
+from test_torch_poseidon_tables import (EPS, P, _jax_permute, add_lazy,
                                         compiled_mds, model_states, reduce96,
                                         sbox, sparse_rounds)
 from zkevm_prover_tpu_torch.ops import poseidon_constants as pc
@@ -77,6 +79,13 @@ def pack3(x0: int, x1: int, x2: int, p: int) -> int:
     return b[0] | b[1] << 8 | b[2] << 16 | b[0] << 24
 
 
+def byte_perm(x: int, y: int, sel: int) -> int:
+    """__byte_perm: byte n of the result is byte (sel >> 4n) & 7 of y:x."""
+    xy = x | y << 32
+    return sum(((xy >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF) << (8 * n)
+               for n in range(4))
+
+
 def b_fragments(table: np.ndarray) -> dict:
     """Each lane's b0 of n8 tiles 0 and 1 from the (32, 16) operand, as
     the kernel reads MXU_B; the kernel passes b1 = 0, which the table's
@@ -111,6 +120,69 @@ def plane_products(v: dict, b: dict, p: int) -> dict:
     return got
 
 
+def mxu_pairs(v: dict, b: dict) -> list:
+    """Mode mxu's carry-free pairs G_q = R_2q + R_2q+1 2^8 of every value a
+    lane holds, from the eight planes' products."""
+    R = [plane_products(v, b, p) for p in range(8)]
+    return [{lane: [[R[2 * q][lane][m][c] + (R[2 * q + 1][lane][m][c] << 8)
+                     for c in range(3)] for m in range(4)]
+             for lane in range(32)} for q in range(4)]
+
+
+# ---- mode mxu24, as csrc/poseidon_gl_mxu24.cuh writes it -----------------
+
+def pack_pair(x0: int, x1: int, x2: int, h: int, q: int) -> tuple:
+    """mxu24::pack_pair: planes 4h + 2q and 4h + 2q + 1 of three lanes,
+    each in bytes 0..2 of a word, by the kernel's three byte permutes."""
+    w = [(x >> (32 * h)) & EPS for x in (x0, x1, x2)]
+    e = 2 * q
+    b01 = byte_perm(w[0], w[1], e | (4 + e) << 4 | (e + 1) << 8
+                    | (5 + e) << 12)
+    return (byte_perm(b01, w[2], 0x10 | (4 + e) << 8),
+            byte_perm(b01, w[2], 0x32 | (5 + e) << 8))
+
+
+def b24_fragments(table: np.ndarray) -> dict:
+    """Each lane's [b0, b1] of n8 tiles 0..2 from the (32, 24) operand, as
+    the kernel reads MXU24_B."""
+    return {lane: [[sum(int(table[k, 8 * c + n]) << (8 * byte)
+                        for byte in range(4)
+                        for k, n in [b_element(lane, reg, byte)])
+                    for reg in (0, 1)] for c in range(3)]
+            for lane in range(32)}
+
+
+def pair_products(v: dict, b: dict, h: int, q: int) -> dict:
+    """G_2h+q of every value a lane holds, formed from the C words of
+    2 m16 tiles x 3 n8 tiles of MMAs on the pair's 4-word A fragment:
+    got[lane][m][c] for lane 3t + c of state g + 8m."""
+    got = {lane: [[None] * 3 for _ in range(4)] for lane in range(32)}
+    for mt in range(2):
+        a = {}
+        for lane in range(32):
+            (e0, o0), (e1, o1) = (pack_pair(*v[lane][2 * mt + row], h, q)
+                                  for row in range(2))
+            a[lane] = [e0, e1, o0, o1]
+        for c in range(3):
+            d = mma(a, {lane: b[lane][c] for lane in range(32)})
+            for lane in range(32):
+                for row in range(2):
+                    even, odd = d[lane][2 * row], d[lane][2 * row + 1]
+                    assert even < 1 << 17 and odd < 1 << 17
+                    got[lane][2 * mt + row][c] = even + (odd << 8)
+    return got
+
+
+def mxu24_pairs(v: dict, b: dict) -> list:
+    return [pair_products(v, b, q // 2, q % 2) for q in range(4)]
+
+
+# ---- what the two modes share --------------------------------------------
+
+MODES = {"mxu": (0, b_fragments, mxu_pairs),
+         "mxu24": (1, b24_fragments, mxu24_pairs)}
+
+
 def recombine(k: int, lo: int, hi: int) -> int:
     """mxu::recombine: k + lo + hi 2^32 as three words (< 2^74), reduced."""
     assert lo < 1 << 42 and hi < 1 << 42
@@ -119,20 +191,20 @@ def recombine(k: int, lo: int, hi: int) -> int:
     return reduce96(total)
 
 
-def full_mds(v: dict, b: dict, fold_r) -> dict:
-    """mxu::full_round after the S-boxes: the byte-plane products paired
-    carry-free, joined in two 64-bit halves, each output lane recombined
-    with its FOLD constant and reduced once."""
-    R = [plane_products(v, b, p) for p in range(8)]
+def full_mds(v: dict, b: dict, fold_r, mode: str = "mxu") -> dict:
+    """The full round after the S-boxes (mxu::full_round, mxu24::Fragments
+    ::full_round): the byte-plane products paired carry-free, joined in two
+    64-bit halves, each output lane recombined with its FOLD constant and
+    reduced once."""
+    pairs = MODES[mode][2](v, b)
     out = {}
     for lane in range(32):
         t = lane & 3
         out[lane] = [[None] * 3 for _ in range(4)]
         for m in range(4):
             for c in range(3):
-                pair = [R[2 * q][lane][m][c] + (R[2 * q + 1][lane][m][c] << 8)
-                        for q in range(4)]
-                assert all(x < 1 << 26 for x in pair)
+                pair = [pairs[q][lane][m][c] for q in range(4)]
+                assert all(x < 1 << 25 for x in pair)
                 half = [pair[0] + (pair[1] << 16), pair[2] + (pair[3] << 16)]
                 out[lane][m][c] = recombine(int(fold_r[3 * t + c]), *half)
     return out
@@ -167,13 +239,15 @@ def fragments_of(states) -> dict:
             for lane in range(32)}
 
 
-def model_permute_mxu(states: np.ndarray) -> np.ndarray:
-    """mxu::permute_kernel on a batch of any height: warps of 32 states,
-    the ragged last one padded with zero states that are never stored."""
+def model_permute(states: np.ndarray, mode: str) -> np.ndarray:
+    """mxu::permute_kernel with the mode's fragments on a batch of any
+    height: warps of 32 states, the ragged last one padded with zero states
+    that are never stored."""
     C, M = pg.tables_host(pc.source())
     rc0, fold = poseidon_cuda.fold_constants(C, M)
     sp = poseidon_cuda.sparse_constants(M)
-    b = b_fragments(poseidon_cuda.mma_operands(compiled_mds())[0])
+    operand, fragments, _ = MODES[mode]
+    b = fragments(poseidon_cuda.mma_operands(compiled_mds())[operand])
     m00 = int(compiled_mds()[0, 0])
     n = len(states)
     out = np.zeros_like(states)
@@ -188,7 +262,7 @@ def model_permute_mxu(states: np.ndarray) -> np.ndarray:
         while r < pc.N_ROUNDS:
             v = {lane: [[sbox(x) for x in row] for row in v[lane]]
                  for lane in range(32)}
-            v = full_mds(v, b, fold[r])
+            v = full_mds(v, b, fold[r], mode)
             r += 1
             if r == HALF:
                 rows = [sparse_rounds(s, fold, *sp, m00) for s in to_rows(v)]
@@ -234,18 +308,67 @@ def test_fragment_maps_hand_each_output_to_its_holder():
     assert len(unused) == 20 and not mxu[unused].any()
 
 
+def test_mxu24_fragment_maps_hand_each_output_to_its_holder():
+    """(a) mxu24: every C element of the three n8 tiles is both planes of
+    one output lane of a state the receiving lane holds (tile c: lane
+    3t + c, c0 and c2 the even plane, c1 and c3 the odd), every held
+    value's pair comes from one tile; A's four words carry the lane's input
+    lanes 3t..3t+2 of the even plane (a0, a1) and the odd plane (a2, a3);
+    B is zero across plane parities and on the unused k-slots."""
+    _, mxu24 = poseidon_cuda.mma_operands(compiled_mds())
+    for c in range(3):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for reg in range(4):
+                row, n = c_element(lane, reg)
+                assert row in (g, g + 8)
+                assert poseidon_cuda.MXU24_N_LANE[8 * c + n] == (3 * t + c,
+                                                                 reg & 1)
+    for lane in range(32):
+        t = lane & 3
+        for reg in range(4):
+            for byte in range(3):
+                _, k = a_element(lane, reg, byte)
+                assert poseidon_cuda.MXU24_K_LANE[k] == (3 * t + byte,
+                                                         reg >> 1)
+    unused = [k for k, i in enumerate(poseidon_cuda.MXU24_K_LANE) if i is None]
+    assert len(unused) == 8 and not mxu24[unused].any()
+    for k, kl in enumerate(poseidon_cuda.MXU24_K_LANE):
+        for n, (_, e) in enumerate(poseidon_cuda.MXU24_N_LANE):
+            if kl is not None and kl[1] != e:
+                assert mxu24[k, n] == 0
+
+
+def test_mxu24_pack_pair_puts_each_plane_on_its_slots():
+    """mxu24::pack_pair's byte permutes: bytes 0..2 of the even and odd
+    words are planes 4h + 2q and 4h + 2q + 1 of the three lanes, byte 3 the
+    first lane's even plane."""
+    xs = [int(x) for x in np.random.default_rng(23).integers(
+        0, 1 << 64, 3, dtype=np.uint64)]
+    for h in range(2):
+        for q in range(2):
+            even, odd = pack_pair(*xs, h, q)
+            for word, p in ((even, 4 * h + 2 * q), (odd, 4 * h + 2 * q + 1)):
+                want = [(x >> (8 * p)) & 0xFF for x in xs]
+                want.append((xs[0] >> (8 * (4 * h + 2 * q))) & 0xFF)
+                assert [(word >> (8 * i)) & 0xFF for i in range(4)] == want
+
+
+@pytest.mark.parametrize("mode", ["mxu", "mxu24"])
 @pytest.mark.parametrize("kind", ["random", "edges", "non_canonical"])
-def test_plane_products_and_recombination(kind):
+def test_plane_products_and_recombination(kind, mode):
     """(b) The byte-plane MMAs and the recombination with FOLD equal
     M s + fold mod p for the 32 states of a warp, every s32 below 2^31,
-    every carry-free pair below 2^26 and every 3-word sum below 2^74."""
+    every product sum below 2^17, every carry-free pair below 2^25 and
+    every 3-word sum below 2^74."""
     states = model_states(kind, 32)
     C, M = pg.tables_host(pc.source())
     _, fold = poseidon_cuda.fold_constants(C, M)
     m = compiled_mds()
-    b = b_fragments(poseidon_cuda.mma_operands(m)[0])
+    operand, fragments, _ = MODES[mode]
+    b = fragments(poseidon_cuda.mma_operands(m)[operand])
     v = fragments_of(states)
-    got = to_rows(full_mds(v, b, fold[0]))
+    got = to_rows(full_mds(v, b, fold[0], mode))
     for i, s in enumerate(states):
         want = [(sum(int(m[o, j]) * int(s[j]) for j in range(W))
                  + int(fold[0, o])) % P for o in range(W)]
@@ -268,6 +391,15 @@ def test_layout_changes_round_trip():
 def test_mxu_model_matches_jax(kind, n):
     """(d) The whole schedule, ragged warps included, bit for bit."""
     states = model_states(kind, n)
-    np.testing.assert_array_equal(model_permute_mxu(states),
+    np.testing.assert_array_equal(model_permute(states, "mxu"),
+                                  _jax_permute(states))
+
+
+@pytest.mark.parametrize("kind,n", [("random", 37), ("edges", 32),
+                                    ("non_canonical", 33)])
+def test_mxu24_model_matches_jax(kind, n):
+    """(d) mxu24's whole schedule, ragged warps included, bit for bit."""
+    states = model_states(kind, n)
+    np.testing.assert_array_equal(model_permute(states, "mxu24"),
                                   _jax_permute(states))
 

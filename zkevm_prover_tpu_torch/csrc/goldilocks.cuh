@@ -1,11 +1,10 @@
 // Goldilocks field p = 2^64 - 2^32 + 1 as native-u64 CUDA device functions.
 //
 // Hopper counterpart of zkevm_prover_tpu/ops/gl_u32.py, the u32-limb layer
-// under the TPU's Pallas kernels: the card has native 64-bit integer adds and
-// a 64x64 -> high-64 multiply (__umul64hi), so an element is one uint64_t and
-// a product is two multiplies plus the 2^64 = 2^32 - 1 (mod p) reduction.
-// Every function takes and returns canonical values in [0, p) unless it
-// says otherwise. Every kernel of the port includes this header.
+// under the TPU's Pallas kernels: an element is one uint64_t, and the
+// kernels keep it lazy (any u64 congruent to it) on 32-bit carry chains
+// below, canonical() once at the end. Every kernel of the port includes
+// this header.
 #pragma once
 
 #include <cstdint>
@@ -13,46 +12,17 @@
 namespace gl {
 
 constexpr uint64_t P = 0xFFFFFFFF00000001ull;
-constexpr uint64_t EPSILON = 0xFFFFFFFFull;  // 2^64 mod p
 
+// a in [0, p) for a lazy a (any u64: a - p < p when a >= p).
 __device__ __forceinline__ uint64_t canonical(uint64_t a) {
   return a >= P ? a - P : a;
 }
 
-__device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  // a carry out of 2^64, or a sum in [p, 2^64): subtract p (adds 2^32 - 1)
-  return (s < a || s >= P) ? s + EPSILON : s;
-}
-
-__device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
-  uint64_t d = a - b;
-  return a < b ? d - EPSILON : d;
-}
-
-// (hi, lo) 128-bit value mod p, with 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
-__device__ __forceinline__ uint64_t reduce128(uint64_t hi, uint64_t lo) {
-  uint64_t hi_hi = hi >> 32;
-  uint64_t hi_lo = hi & 0xFFFFFFFFull;
-  uint64_t t0 = lo - hi_hi;
-  if (lo < hi_hi) t0 -= EPSILON;
-  uint64_t t1 = hi_lo * EPSILON;
-  uint64_t t2 = t0 + t1;
-  if (t2 < t1) t2 += EPSILON;
-  return t2 >= P ? t2 - P : t2;
-}
-
-__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
-  return reduce128(__umul64hi(a, b), a * b);
-}
-
-__device__ __forceinline__ uint64_t square(uint64_t a) { return mul(a, a); }
-
 // ---- lazy arithmetic on 32-bit words (inline PTX carry chains) ----------
 // "Lazy" values are any u64 congruent to the field element; one canonical()
 // at the end makes them canonical. The carry chains (add.cc / addc, mad.cc /
-// madc) stand in for the compare-and-select pairs that the 64-bit C++ forms
-// above compile to. Scratch words are asm outputs the C++ never reads
+// madc) stand in for the compare-and-select pairs that 64-bit C++ forms
+// compile to. Scratch words are asm outputs the C++ never reads
 // (kept so: as PTX-local .reg temporaries the same code compiled to more
 // instructions), hence the suppressed set-but-not-used warning.
 #pragma nv_diag_suppress 550
@@ -70,8 +40,7 @@ __device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
 // (r4:r3:r2:r1:r0) mod p, lazy, for r4 < 2^31: (r1:r0) - (r4:r3) + r2 *
 // (2^32 - 1), using 2^64 = 2^32 - 1, 2^96 = -1 and 2^128 = -2^32 (mod p).
 // A borrow out of the subtraction takes 2^32 - 1 off again, a carry out of
-// the addition adds it; neither correction can wrap (gl::reduce128 without
-// its final subtract, when r4 = 0).
+// the addition adds it; neither correction can wrap.
 __device__ __forceinline__ uint64_t reduce_words(uint32_t r0, uint32_t r1,
                                                  uint32_t r2, uint32_t r3,
                                                  uint32_t r4 = 0) {

@@ -4,9 +4,7 @@
 // constants, x^7 on every lane (full) or on lane 0 (partial), multiply by
 // the small-integer 12x12 MDS. Canonical output, bit-identical to
 // poseidon_gl.permute_plain. This header holds what every kernel shares:
-// the round counts, the reference MDS compiled in and the lazy S-box; the
-// kernel that reads the round constants from a runtime table (mxu24)
-// includes poseidon_tables.cuh on top of it.
+// the round counts, the reference MDS compiled in and the lazy S-box.
 #pragma once
 
 #include <cstdint>

@@ -1,10 +1,11 @@
 // Poseidon-Goldilocks width-12 permutation over a batch of states, and the
 // Merkle commit of a (H, W) source fused onto it (sm_90a). The library
-// built from this file also holds the "2d", "mxu", "blocked" and "1d"
-// kernels (poseidon_gl_2d.cuh, poseidon_gl_mxu.cuh,
-// poseidon_gl_blocked.cuh, poseidon_gl_1d.cuh, included below): one
-// translation unit, so the lazy body's constant tables (poseidon_lazy.cuh)
-// exist once and poseidon_gl_set_constants fills them for every kernel.
+// built from this file also holds the "2d", "mxu", "mxu24", "blocked" and
+// "1d" kernels (poseidon_gl_2d.cuh, poseidon_gl_mxu.cuh,
+// poseidon_gl_mxu24.cuh, poseidon_gl_blocked.cuh, poseidon_gl_1d.cuh,
+// included below): one translation unit, so the lazy body's constant tables
+// (poseidon_lazy.cuh) exist once and poseidon_gl_set_constants fills them
+// for every kernel. It is the port's only kernel library.
 //
 // Replaces the TPU kernel zkevm_prover_tpu/ops/poseidon_pallas.py
 // _make_kernel_mxu96 (the production "mxu96" mode of poseidon_pallas.permute)
@@ -184,9 +185,10 @@ merkle_level_kernel(uint64_t* __restrict__ tree, int64_t h, int base,
 
 }  // namespace
 
-// The library's other four permutation kernels, on the same lazy body.
+// The library's other five permutation kernels, on the same lazy body.
 #include "poseidon_gl_2d.cuh"
 #include "poseidon_gl_mxu.cuh"
+#include "poseidon_gl_mxu24.cuh"
 #include "poseidon_gl_blocked.cuh"
 #include "poseidon_gl_1d.cuh"
 
@@ -195,8 +197,9 @@ merkle_level_kernel(uint64_t* __restrict__ tree, int64_t h, int base,
 // MDS (poseidon_cuda.fold_constants), mds the set's 12x12 MDS row-major and
 // circ, diag its circulant + diagonal decomposition (poseidon_cuda
 // .circ_diag), which must be the compiled-in ones, pre, w, v the sparse
-// partial rounds (poseidon_cuda.sparse_constants) and mxu_b mode mxu's
-// (32, 16) u8 operand (poseidon_cuda.mma_operands).
+// partial rounds (poseidon_cuda.sparse_constants), mxu_b mode mxu's
+// (32, 16) u8 operand and mxu24_b mode mxu24's (32, 24) one
+// (poseidon_cuda.mma_operands).
 // Returns a cudaError_t code, or POSEIDON_GL_MDS_MISMATCH.
 #define POSEIDON_GL_MDS_MISMATCH (-1)
 extern "C" int poseidon_gl_set_constants(const uint64_t* rc0,
@@ -207,7 +210,8 @@ extern "C" int poseidon_gl_set_constants(const uint64_t* rc0,
                                          const uint64_t* pre,
                                          const uint64_t* w,
                                          const uint64_t* v,
-                                         const uint8_t* mxu_b) {
+                                         const uint8_t* mxu_b,
+                                         const uint8_t* mxu24_b) {
   for (int i = 0; i < WIDTH; ++i) {
     if (circ[i] != pos::circ_coeff(i) || diag[i] != pos::diag_coeff(i))
       return POSEIDON_GL_MDS_MISMATCH;
@@ -222,6 +226,8 @@ extern "C" int poseidon_gl_set_constants(const uint64_t* rc0,
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(SP_V, v, sizeof(SP_V));
   if (err == cudaSuccess)
     err = cudaMemcpyToSymbol(mxu::MXU_B, mxu_b, sizeof(mxu::MXU_B));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(mxu24::MXU24_B, mxu24_b, sizeof(mxu24::MXU24_B));
   return static_cast<int>(err);
 }
 

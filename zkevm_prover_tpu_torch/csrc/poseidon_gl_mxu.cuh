@@ -42,8 +42,15 @@
 // full rounds' MDS becomes byte packing (PRMT), 32 MMAs and the
 // recombination per warp, against kernel 1's 432 IMADs per state. The
 // tensor cores' share of the work is small (8 MMAs per permutation); the
-// registers are the constraint: 94 with no spill at 5 blocks of 128
-// threads per SM, as kernel 1.
+// registers are the constraint: 5 blocks of 128 threads per SM, as kernel
+// 1, cap them at 96 (65,536 per SM, allocated 8 per thread at a time). With
+// the B fragments parked through the partial rounds mxu takes 96 and mxu24
+// 92, neither spilling; kept in registers there, mxu24's spilled and ran
+// 5 % slower (PERF.md).
+//
+// Mode mxu24 (poseidon_gl_mxu24.cuh) runs this kernel body with its own
+// full round: permute_kernel is a template on the lane's B fragments and
+// the full round they serve.
 //
 // Part of the poseidon_gl library: poseidon_gl.cu includes this file after
 // poseidon_lazy.cuh.
@@ -219,23 +226,43 @@ __device__ __forceinline__ void to_fragments(const uint64_t s[WIDTH],
   __syncwarp();
 }
 
+// Mode mxu's B fragments (column g of each n8 tile, k-slots 4t..4t+3) and
+// its full round.
+struct Fragments {
+  static constexpr int kWords = 2;
+  uint32_t b[kWords] = {};
+  __device__ Fragments(int g, int t) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        b[nt] |= uint32_t{MXU_B[(4 * t + c) * kN + 8 * nt + g]} << (8 * c);
+  }
+  __device__ __forceinline__ void full_round(uint64_t (&v)[kRows][kCols],
+                                             int r, int t) const {
+    mxu::full_round(v, b[0], b[1], r, t);
+  }
+};
+
+// The kernel of the fragment-layout modes: Frag holds the lane's B
+// fragments (its kWords words b) and runs a full round in fragment layout
+// (mxu: Fragments; mxu24: mxu24::Fragments, poseidon_gl_mxu24.cuh); loads,
+// stores and the partial rounds are shared. The B fragments wait in shared
+// memory through the partial rounds, which do not use them, so that their
+// registers serve the partial rounds.
+template <class Frag>
 __global__ void __launch_bounds__(kThreads, 5)
 permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                int64_t n) {
   __shared__ __align__(16) uint64_t tiles[kWarps][32 * WIDTH];
+  __shared__ uint32_t parked[kWarps][32 * Frag::kWords];
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int warp = threadIdx.x >> 5;
   const int64_t base =
       (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * 32;
   if (base >= n) return;   // the whole warp is past the batch
   uint64_t* tile = tiles[warp];
-  // the lane's B fragments: column g of each n8 tile, k-slots 4t..4t+3
-  uint32_t b[2] = {0, 0};
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      b[nt] |= uint32_t{MXU_B[(4 * t + c) * kN + 8 * nt + g]} << (8 * c);
+  Frag frag(g, t);
   uint64_t v[kRows][kCols];
 #pragma unroll
   for (int m = 0; m < kRows; ++m) {
@@ -248,12 +275,18 @@ permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
   }
 #pragma unroll 1
   for (int r = 0; r < pos::N_ROUNDS;) {
-    full_round(v, b[0], b[1], r, t);
+    frag.full_round(v, r, t);
     if (++r == pos::HALF_F) {
+#pragma unroll
+      for (int k = 0; k < Frag::kWords; ++k)
+        parked[warp][32 * k + lane] = frag.b[k];
       uint64_t s[WIDTH];
       to_rows(v, s, tile, lane);
       partial_rounds(s);
       to_fragments(s, v, tile, lane);
+#pragma unroll
+      for (int k = 0; k < Frag::kWords; ++k)
+        frag.b[k] = parked[warp][32 * k + lane];
       r += pos::ROUNDS_P;
     }
   }
@@ -268,6 +301,18 @@ permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
   }
 }
 
+// One launch of permute_kernel<Frag> over n states on `stream`. Returns
+// cudaGetLastError() after the launch.
+template <class Frag>
+int launch(const uint64_t* in, uint64_t* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const long long per_block = 32LL * kWarps;
+  const long long blocks = (n + per_block - 1) / per_block;
+  permute_kernel<Frag><<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(in, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace mxu
 }  // namespace
 
@@ -275,10 +320,5 @@ permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
 // launched on `stream`. Returns cudaGetLastError() after the launch.
 extern "C" int poseidon_gl_mxu_permute(const uint64_t* in, uint64_t* out,
                                        long long n, void* stream) {
-  if (n <= 0) return 0;
-  const long long per_block = 32LL * mxu::kWarps;
-  const long long blocks = (n + per_block - 1) / per_block;
-  mxu::permute_kernel<<<static_cast<unsigned>(blocks), mxu::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(in, out, n);
-  return static_cast<int>(cudaGetLastError());
+  return mxu::launch<mxu::Fragments>(in, out, n, stream);
 }

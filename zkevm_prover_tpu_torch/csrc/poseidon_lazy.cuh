@@ -3,19 +3,19 @@
 //
 // One copy of it serves every kernel of the poseidon_gl library
 // (poseidon_gl.cu: the mxu96 permutation and the fused Merkle commit;
-// poseidon_gl_2d.cuh, poseidon_gl_mxu.cuh, poseidon_gl_blocked.cuh,
-// poseidon_gl_1d.cuh), which are one translation unit: poseidon_gl.cu
-// includes this header and the other four, so the constant tables below
-// exist once and poseidon_gl_set_constants fills them for all of them. The
-// schedule:
+// poseidon_gl_2d.cuh, poseidon_gl_mxu.cuh, poseidon_gl_mxu24.cuh,
+// poseidon_gl_blocked.cuh, poseidon_gl_1d.cuh), which are one translation
+// unit: poseidon_gl.cu includes this header and the other five, so the
+// constant tables below exist once and poseidon_gl_set_constants fills
+// them for all of them. The schedule:
 //  - RC0 added before round 0; FOLD[r] added inside round r's MDS reduction
 //    (poseidon_cuda.fold_constants: every partial round's constants but
 //    lane 0's pushed forward into the first full round after them);
 //  - the full rounds' MDS with the reference coefficients compiled in as
 //    immediates on 22/21/21-bit limbs (poseidon_common.cuh mds_fold_limbs;
 //    a kernel may pass another form of the same matrix as `Mds`, as 2d
-//    does; mxu runs the full rounds in its own layout and takes only the
-//    partial rounds from here);
+//    does; mxu and mxu24 run the full rounds in their own layout and take
+//    only the partial rounds from here);
 //  - the 22 partial rounds' MDS factored sparse (the Poseidon paper's
 //    appendix B; poseidon_cuda.sparse_constants: SP_PRE, SP_W, SP_V);
 //  - one rolled loop body for all eight full rounds (unrolled copies ran

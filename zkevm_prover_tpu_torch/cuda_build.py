@@ -32,10 +32,9 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 
 # kernel library name -> its source under csrc/ (poseidon_gl.cu includes
-# the 2d, mxu, blocked and 1d kernels: one translation unit, one constant
-# set)
-KERNELS = {"poseidon_gl": "poseidon_gl.cu",
-           "poseidon_gl_mma": "poseidon_gl_mma.cu"}
+# the 2d, mxu, mxu24, blocked and 1d kernels: one translation unit, one
+# constant set)
+KERNELS = {"poseidon_gl": "poseidon_gl.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

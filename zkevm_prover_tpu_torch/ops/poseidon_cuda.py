@@ -4,29 +4,28 @@
 selects which kernel `permute` launches; `tools/bench_poseidon.py` switches
 that module constant per run, and a caller of the port sets this one the
 same way. Each mode has its own entry point, lays the (H, 12) int64 batch
-out as its kernel takes it, pads it to its own tile, and adds one to
-`launches[mode]` each time it launches its kernel:
+out as its kernel takes it, and adds one to `launches[mode]` each time it
+launches its kernel:
 
-  mode      kernel (csrc/)            layout it takes              pad to
-  mxu96     poseidon_gl.cu            (H, 12) row-major            1
-  2d        poseidon_gl_2d.cuh        (H, 12) row-major            1
-  mxu       poseidon_gl_mxu.cuh       (H, 12) row-major            1
-  blocked   poseidon_gl_blocked.cuh   (H, 12) row-major            1
-  1d        poseidon_gl_1d.cuh        (12, H) lane-major           1
-  mxu24     poseidon_gl_mma.cu        (24, H/2): two halves stacked 2048
+  mode      kernel (csrc/)            layout it takes
+  mxu96     poseidon_gl.cu            (H, 12) row-major
+  2d        poseidon_gl_2d.cuh        (H, 12) row-major
+  mxu       poseidon_gl_mxu.cuh       (H, 12) row-major
+  mxu24     poseidon_gl_mxu24.cuh     (H, 12) row-major
+  blocked   poseidon_gl_blocked.cuh   (H, 12) row-major
+  1d        poseidon_gl_1d.cuh        (12, H) lane-major
 
-mxu96, 2d, mxu, blocked and 1d are one library (`poseidon_gl.cu` includes
-the other four sources) on one lazy permutation body (`poseidon_lazy.cuh`):
-the reference MDS compiled in, the tables derived here (`fold_constants`,
-`sparse_constants`, `circ_diag`, `mma_operands`), loaded once for all five,
-and a constant set with another MDS refused. Their kernels take any H;
-`launch` runs one of them on a batch already in its layout. mxu24 pads to
-the JAX package's multiple (`poseidon_pallas.permute`) and reads the round
-constants from a runtime table (`poseidon_tables.cuh`). Every entry point
-checks what its kernel takes and raises on anything else, and `permute`
-raises on an unknown mode: nothing falls back to another mode or to the
-plain version. Each kernel's note says what TPU kernel it replaces and what
-bounds it; the plain twin of all of them is `poseidon_gl.permute_plain`.
+All six are one library (`poseidon_gl.cu` includes the other five sources)
+on one lazy permutation body (`poseidon_lazy.cuh`): the reference MDS
+compiled in, the tables derived here (`fold_constants`, `sparse_constants`,
+`circ_diag`, `mma_operands`), loaded once for all of them, and a constant
+set with another MDS refused. Every kernel takes any H (`PAD` is 1 for
+each, where the JAX package pads to its tiles); `launch` runs one of them
+on a batch already in its layout. Every entry point checks what its kernel
+takes and raises on anything else, and `permute` raises on an unknown mode:
+nothing falls back to another mode or to the plain version. Each
+kernel's note says what TPU kernel it replaces and what bounds it; the
+plain twin of all of them is `poseidon_gl.permute_plain`.
 
 The poseidon_gl library also holds the fused Merkle commit, `merkle_levels`
 (`ops/merkle.py` takes it under mode mxu96; its plain twin is
@@ -52,19 +51,17 @@ MODE = "mxu96"
 launches = {mode: 0 for mode in MODES}
 launches["merkle"] = 0
 
-PAD = {"1d": 1, "2d": 1, "blocked": 1, "mxu": 1, "mxu24": 2 * 1024,
-       "mxu96": 1}
+PAD = {mode: 1 for mode in MODES}
 
 # kernel library of each mode (cuda_build.KERNELS names)
-LIBRARY = {"1d": "poseidon_gl", "2d": "poseidon_gl",
-           "blocked": "poseidon_gl", "mxu": "poseidon_gl",
-           "mxu24": "poseidon_gl_mma", "mxu96": "poseidon_gl"}
+LIBRARY = {mode: "poseidon_gl" for mode in MODES}
 
 # the poseidon_gl library's permutation entry points, each (in, out, n,
 # stream) on its mode's own layout
 _GL_PERMUTE = {"mxu96": "poseidon_gl_permute",
                "2d": "poseidon_gl_2d_permute",
                "mxu": "poseidon_gl_mxu_permute",
+               "mxu24": "poseidon_gl_mxu24_permute",
                "blocked": "poseidon_gl_blocked_permute",
                "1d": "poseidon_gl_1d_permute"}
 
@@ -76,14 +73,12 @@ _I = ctypes.c_int
 _MERKLE_ARGTYPES = [_P, _LL, _LL, _LL, _P, _LL, _I, _I, _LL, _I, _I, _I, _P]
 _FUNCTIONS = {  # argument types of each library's entry points
     "poseidon_gl": {**{fn: [_P, _P, _LL, _P] for fn in _GL_PERMUTE.values()},
-                    "poseidon_gl_set_constants": [_P] * 9,
+                    "poseidon_gl_set_constants": [_P] * 10,
                     "poseidon_gl_merkle": _MERKLE_ARGTYPES},
-    "poseidon_gl_mma": {"poseidon_gl_mma_permute": [_P, _P, _LL, _P],
-                        "poseidon_gl_mma_set_constants": [_P] * 2},
 }
 # the host tables poseidon_gl_set_constants takes, in its order
 GL_CONSTANTS = ("rc0", "fold", "mds", "circ", "diag", "sp_pre", "sp_w",
-                "sp_v", "mxu_b")
+                "sp_v", "mxu_b", "mxu24_b")
 MERKLE_THREADS = 128   # csrc/poseidon_gl.cu THREADS
 _MDS_MISMATCH = -1     # csrc/poseidon_gl.cu POSEIDON_GL_MDS_MISMATCH
 
@@ -199,26 +194,36 @@ MXU_K_LANE = [3 * (k // 4) + k % 4 if k < 16 and k % 4 < 3 else None
               for k in range(32)]
 MXU_N_LANE = ([3 * (n // 2) + n % 2 for n in range(8)]
               + [3 * (n // 2) + 2 if n % 2 == 0 else None for n in range(8)])
+# mode mxu24's (csrc/poseidon_gl_mxu24.cuh), as (lane, plane parity): the
+# A fragment of a plane pair holds the even plane of input lanes 3t..3t+2
+# at k-slots 4t..4t+2 and the odd plane at 16+4t..16+4t+2; in n8 tile c,
+# columns 2u and 2u+1 are output lane 3u + c of the even and the odd plane,
+# so the C fragment gives lane (g, t) both planes of output lane 3t + c.
+MXU24_K_LANE = [(3 * (k % 16 // 4) + k % 4, k // 16) if k % 4 < 3 else None
+                for k in range(32)]
+MXU24_N_LANE = [(3 * (n % 8 // 2) + n // 8, n % 2) for n in range(24)]
 
 
 def mma_operands(coeffs: np.ndarray):
-    """The fixed u8 tensor-core operands: mode mxu's B = M^T with its k-slots
-    and columns permuted, (32, 16) (B[k, n] = M[MXU_N_LANE[n],
-    MXU_K_LANE[k]], zero where either is None), and mxu24's
-    B = blockdiag(M^T, M^T) padded to (32, 24) (row = k, column = n). None
-    if an entry does not fit u8."""
+    """The fixed u8 tensor-core operands, each M^T with its k-slots and
+    columns permuted: mode mxu's (32, 16) (B[k, n] = M[MXU_N_LANE[n],
+    MXU_K_LANE[k]], zero where either is None) and mode mxu24's (32, 24)
+    blockdiag(M^T, M^T) (B[k, n] = M[o, i] for MXU24_K_LANE[k] = (i, e) and
+    MXU24_N_LANE[n] = (o, e), zero across plane parities and where the
+    k-slot is None). None if an entry does not fit u8."""
     if int(coeffs.max()) > 255:
         return None
-    w = pg.WIDTH
     mxu = np.zeros((32, 16), dtype=np.uint8)
     for k, i in enumerate(MXU_K_LANE):
         for n, o in enumerate(MXU_N_LANE):
             if i is not None and o is not None:
                 mxu[k, n] = coeffs[o, i]
-    b = np.zeros((32, 24), dtype=np.uint8)
-    b[:w, :w] = coeffs.T
-    b[w:2 * w, w:2 * w] = coeffs.T
-    return mxu, b
+    mxu24 = np.zeros((32, 24), dtype=np.uint8)
+    for k, ki in enumerate(MXU24_K_LANE):
+        for n, (o, e) in enumerate(MXU24_N_LANE):
+            if ki is not None and ki[1] == e:
+                mxu24[k, n] = coeffs[o, ki[0]]
+    return mxu, mxu24
 
 
 @functools.lru_cache(maxsize=4)
@@ -233,10 +238,10 @@ def _host_tables(source: str):
     rc0, fold = fold_constants(C, M)
     pre, w, v = sparse_constants(M)
     mma = mma_operands(coeffs)
+    # a set whose MDS does not fit u8 passes zeros, refused with its MDS
     mxu, mxu24 = mma if mma is not None else (np.zeros((32, 16), np.uint8),
-                                              None)
-    return {"rc": np.ascontiguousarray(C.reshape(-1), dtype=np.uint64),
-            "rc0": rc0, "fold": np.ascontiguousarray(fold.reshape(-1)),
+                                              np.zeros((32, 24), np.uint8))
+    return {"rc0": rc0, "fold": np.ascontiguousarray(fold.reshape(-1)),
             "sp_pre": np.ascontiguousarray(pre.reshape(-1)),
             "sp_w": np.ascontiguousarray(w.reshape(-1)),
             "sp_v": np.ascontiguousarray(v.reshape(-1)),
@@ -259,18 +264,14 @@ def _library(mode: str):
     lib = _libs[name]
     source = pc.source()
     tab = _host_tables(source)
-    if mode == "mxu24" and tab["mxu24_b"] is None:
-        raise ValueError(f"mode {mode} needs MDS entries below 256")
     if _constants_source.get(name) != source:
         # a set with no circulant + diagonal form passes zeros, refused
-        keys = GL_CONSTANTS if name == "poseidon_gl" else ("rc", "mxu24_b")
         err = getattr(lib, f"{name}_set_constants")(
-            *[tab[k].ctypes.data for k in keys])
-        if name == "poseidon_gl" and err == _MDS_MISMATCH:
+            *[tab[k].ctypes.data for k in GL_CONSTANTS])
+        if err == _MDS_MISMATCH:
             raise ValueError(f"constant set {source!r} does not have the MDS "
-                             "compiled into csrc/poseidon_gl.cu (modes mxu96, "
-                             "2d, mxu, blocked and 1d, and the fused Merkle "
-                             "commit)")
+                             "compiled into csrc/poseidon_gl.cu (every mode's "
+                             "kernel and the fused Merkle commit)")
         if err:
             raise RuntimeError(f"{name}_set_constants failed: cudaError {err}")
         _constants_source[name] = source
@@ -288,20 +289,10 @@ def _check(states: torch.Tensor) -> None:
         raise ValueError("states must be contiguous")
 
 
-def _padded(states: torch.Tensor, mode: str) -> torch.Tensor:
-    """The batch zero-padded to the mode's multiple, in a fresh (so 16-byte
-    aligned) tensor unless it is one already."""
-    pad = (-states.shape[0]) % PAD[mode]
-    if pad:
-        return torch.cat([states, states.new_zeros((pad, pg.WIDTH))])
-    return states if states.data_ptr() % 16 == 0 else states.clone()
-
-
 def launch(mode: str, x: torch.Tensor, out: torch.Tensor) -> None:
-    """One launch of the poseidon_gl library's `mode` kernel (mxu96, 2d,
-    mxu, blocked or 1d) from x into out, both already in that kernel's layout:
-    (H, 12) row-major, or (12, H) lane-major for 1d; int64, contiguous and
-    16-byte aligned on one card. Counted in launches[mode]. The mode's
+    """One launch of the poseidon_gl library's `mode` kernel from x into
+    out, both already in that kernel's layout: (H, 12) row-major, or (12, H)
+    lane-major for 1d; int64, contiguous and 16-byte aligned on one card. Counted in launches[mode]. The mode's
     entry point lays the batch out and calls this."""
     if mode not in _GL_PERMUTE:
         raise ValueError(f"launch takes the modes {tuple(_GL_PERMUTE)}, "
@@ -336,7 +327,7 @@ def launch(mode: str, x: torch.Tensor, out: torch.Tensor) -> None:
 
 def _permute_gl(mode: str, states: torch.Tensor) -> torch.Tensor:
     _check(states)
-    x = _padded(states, mode)   # PAD 1: only 16-byte aligned
+    x = states if states.data_ptr() % 16 == 0 else states.clone()
     if mode == "1d":
         x = x.T.contiguous()
     out = torch.empty_like(x)
@@ -374,28 +365,9 @@ def permute_mxu(states: torch.Tensor) -> torch.Tensor:
 
 
 def permute_mxu24(states: torch.Tensor) -> torch.Tensor:
-    """(H, 12) states through csrc/poseidon_gl_mma.cu, byte-plane pairs
-    against blockdiag(M^T, M^T): the (12, H) transpose padded to 2048 with
-    its two halves stacked as (24, H/2)."""
-    _check(states)
-    lib = _library("mxu24")
-    h = states.shape[0]
-    if h == 0:
-        return torch.empty_like(states)
-    xt = _padded(states, "mxu24").T.contiguous()
-    half = xt.shape[1] // 2
-    stacked = torch.cat([xt[:, :half], xt[:, half:]], dim=0)
-    out = torch.empty_like(stacked)
-    stream = torch.cuda.current_stream(states.device).cuda_stream
-    with torch.cuda.device(states.device):
-        err = lib.poseidon_gl_mma_permute(stacked.data_ptr(), out.data_ptr(),
-                                          xt.shape[1], stream)
-    if err:
-        raise RuntimeError(f"poseidon_gl_mma_permute (mxu24) launch failed: "
-                           f"cudaError {err}")
-    launches["mxu24"] += 1
-    out_t = torch.cat([out[:pg.WIDTH], out[pg.WIDTH:]], dim=1)
-    return out_t.T[:h].contiguous()
+    """(H, 12) states through csrc/poseidon_gl_mxu24.cuh: row-major, the
+    full rounds' MDS as byte-plane pairs on the tensor cores, any H."""
+    return _permute_gl("mxu24", states)
 
 
 ENTRY = {"1d": permute_1d, "2d": permute_2d, "blocked": permute_blocked,

@@ -236,3 +236,45 @@ def test_slice_card_proof_matches_cpu(card):
         assert ex.verify_all(proofs)
         jsons[str(dev)] = proofs["poseidon_g"][1].to_json()
     assert jsons["cuda"] == jsons["cpu"]
+
+
+def test_state_tree_card_root_matches_cpu(card, monkeypatch):
+    from zkevm_prover_tpu_torch.executor import examples as batches
+    from zkevm_prover_tpu_torch.hashdb import Database
+
+    monkeypatch.setattr(poseidon_cuda, "MODE", "mxu96")
+    before = poseidon_cuda.launches["mxu96"]
+    tree = batches.state_tree(Database(), 1 << 10, 3, card)
+    # one launch per hash batch: value preimages, leaves, each level
+    assert poseidon_cuda.launches["mxu96"] - before == tree.depth + 2
+    assert tree.root == batches.state_tree(Database(), 1 << 10, 3,
+                                           "cpu").root
+
+
+def test_storage_batch_card_proof_matches_cpu(card):
+    from zkevm_prover_tpu_torch.executor import examples as batches
+
+    jsons = {}
+    for dev in (card, "cpu"):
+        db, actions = batches.small_storage_batch(dev)
+        ex = Executor(device=dev)
+        proofs = ex.prove_all(BatchActions(storage=actions), db=db)
+        assert sorted(proofs) == ["climb_key", "poseidon_g", "storage"]
+        if dev == card:
+            assert ex.verify_all(proofs)
+        jsons[str(dev)] = {name: proof.to_json()
+                           for name, (_, proof) in proofs.items()}
+    assert jsons["cuda"] == jsons["cpu"]
+
+
+def test_page_store_builds_into_the_build_directory(card, tmp_path):
+    import pathlib
+
+    from zkevm_prover_tpu_torch.hashdb64 import PageStore, page_store
+
+    lib = pathlib.Path(page_store.build_library())
+    assert lib.parent.parent.name == "build" and lib.exists()
+    ps = PageStore(str(tmp_path / "kv.pages"))
+    ps.set(bytes(range(32)), b"value")
+    assert ps.get(bytes(range(32))) == b"value"
+    ps.close()

@@ -34,10 +34,17 @@ def test_port_imports_without_jax():
     names = set(res.stdout.split())
     assert len(names) >= 28
     sms = ("binary", "memory", "arith", "mem_align", "padding_pg",
-           "climb_key", "poseidon_g")
+           "climb_key", "poseidon_g", "storage")
     assert {f"zkevm_prover_tpu_torch.executor.sm.{sm}" for sm in sms} <= names
     assert {"zkevm_prover_tpu_torch.executor.examples",
-            "zkevm_prover_tpu_torch.ops.poseidon_cuda"} <= names
+            "zkevm_prover_tpu_torch.ops.poseidon_cuda",
+            "zkevm_prover_tpu_torch.ops.keccak"} <= names
+    hashdb = ("key_utils", "cache", "database", "smt", "state_manager",
+              "hashdb_interface")
+    hashdb64 = ("page_store", "database64", "key_value_history",
+                "level_tree", "state64")
+    assert {f"zkevm_prover_tpu_torch.hashdb.{m}" for m in hashdb} <= names
+    assert {f"zkevm_prover_tpu_torch.hashdb64.{m}" for m in hashdb64} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -81,6 +88,9 @@ def test_executor_refuses_unported_actions():
     from zkevm_prover_tpu_torch.executor import BatchActions, Executor
 
     ex = Executor(device="cpu")
-    for kind in ("storage", "keccak", "sha256", "hashp"):
+    for kind in ("keccak", "sha256", "hashp"):
         with pytest.raises(NotImplementedError, match=kind):
             ex.execute(BatchActions(**{kind: [{"a": 1}]}))
+    # storage is ported: it needs the database its trees live in
+    with pytest.raises(ValueError, match="db="):
+        ex.execute(BatchActions(storage=[{"op": "get"}]))

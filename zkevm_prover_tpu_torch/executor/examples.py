@@ -7,17 +7,28 @@ its capacity less one group. That is a synthetic capacity fill (every op
 kind in turn, uniform random operands), not a traffic mix measured on real
 batches: it sizes the traces as a full batch does, but its op mix is a
 guess. Both return keyword arguments of `BatchActions`.
+
+`state_tree` builds the pre-state of a storage batch: a canonical sparse
+Merkle tree of random keys, hashed level by level in batches through the
+Poseidon kernel; `storage_batch` draws a chained stream of storage actions
+over it, closed on the PoseidonG counter.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import random
 
 import numpy as np
 
+from .. import resolve_device
+from ..hashdb import key_utils as ku
+from ..hashdb.smt import ZERO4, fea8_to_scalar
+from ..ops import goldilocks as gl
+from ..ops import poseidon_gl
 from .executor import BatchActions
-from .sm import arith, binary, climb_key
+from .sm import arith, binary, climb_key, storage
 
 P = 0xFFFFFFFF00000001
 # secp256k1 generator G and 2G
@@ -146,3 +157,215 @@ def full_batch(executor, seed: int = 2) -> dict:
                         for i in range(n)]
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# storage: the pre-state tree and a batch of actions over it
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StateTree:
+    """What `state_tree` built: the root, the keys ((n, 4) uint64) and
+    their values, the number of nodes written and the deepest leaf's
+    level."""
+
+    root: tuple
+    keys: np.ndarray
+    values: list
+    nodes: int
+    depth: int
+
+
+def _path_words(keys: np.ndarray) -> np.ndarray:
+    """The first 64 path bits of each key as one uint64, path bit 0 the
+    most significant (path bit i is bit i >> 2 of lane i & 3, as
+    `key_utils.split_key`): sorting these words orders keys as the tree
+    does."""
+    w = np.zeros(len(keys), np.uint64)
+    for i in range(64):
+        bit = (keys[:, i & 3] >> np.uint64(i >> 2)) & np.uint64(1)
+        w |= bit << np.uint64(63 - i)
+    return w
+
+
+def _clz64(x: np.ndarray) -> np.ndarray:
+    """Leading zeros of nonzero uint64 values."""
+    n = np.zeros(x.shape, np.int64)
+    for s in (32, 16, 8, 4, 2, 1):
+        z = (x >> np.uint64(64 - s)) == 0
+        n += z * s
+        x = np.where(z, x << np.uint64(s), x)
+    return n
+
+
+def _hash_batch(states: np.ndarray, device) -> np.ndarray:
+    """Digests (lanes 0..3) of a batch of (m, 12) uint64 preimages through
+    `poseidon_gl.permute`: the kernel of `poseidon_cuda.MODE` on a CUDA
+    device, the plain twin on the CPU."""
+    out = poseidon_gl.permute(gl.from_u64(states, device))
+    return gl.to_u64(out[:, :4])
+
+
+def state_tree(db, n_keys: int, seed: int, device=None) -> StateTree:
+    """The canonical sparse Merkle tree of `n_keys` random keys (4 field
+    elements each) with random 256-bit values, from
+    np.random.default_rng(seed), written into `db` (`Database.multi_write`).
+
+    The tree is `hashdb.Smt`'s: its root depends only on the key/value
+    set, so it equals the root of sequential `Smt.set` inserts. A leaf sits
+    one level below the longest path prefix its key shares with any other
+    key, holding `key_utils.remove_key_bits` of its key; a branch with one
+    empty side hashes against (0, 0, 0, 0). The hashes run in batches,
+    value preimages first, then the leaves, then each branch level bottom
+    up, one batch per level, through `poseidon_gl.permute` on `device`.
+    Leaves deeper than 64 levels (two keys sharing 64 path bits) are
+    refused."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, gl.P, (n_keys, 4), dtype=np.uint64)
+    limbs = rng.integers(0, 1 << 32, (n_keys, 8), dtype=np.uint64)
+    words = _path_words(keys)
+    order = np.argsort(words, kind="stable")
+    keys, limbs, words = keys[order], limbs[order], words[order]
+    diff = words[1:] ^ words[:-1]
+    if not diff.all():
+        raise ValueError("two keys share 64 path bits")
+    lcp = _clz64(diff)
+    depth = np.zeros(n_keys, np.int64)
+    if n_keys > 1:
+        depth[:-1] = lcp
+        depth[1:] = np.maximum(depth[1:], lcp)
+        depth += 1
+
+    zeros4 = np.zeros((n_keys, 4), np.uint64)
+    value_pre = np.concatenate([limbs, zeros4], axis=1)
+    value_h = _hash_batch(value_pre, dev)
+    lanes = np.arange(4)
+    shift = (depth[:, None] >> 2) + (lanes[None, :] < (depth[:, None] & 3))
+    rkey = keys >> shift.astype(np.uint64)
+    cap_leaf = np.zeros((n_keys, 4), np.uint64)
+    cap_leaf[:, 0] = 1
+    leaf_pre = np.concatenate([rkey, value_h, cap_leaf], axis=1)
+    leaf_h = _hash_batch(leaf_pre, dev)
+    hashes, preimages = [value_h, leaf_h], [value_pre, leaf_pre]
+
+    # bottom up: the nodes of level L are the branches made from level L+1
+    # and the leaves at depth L, each named by its L-bit path prefix
+    d_max = int(depth.max())
+    prefix = np.zeros(0, np.uint64)
+    node_h = np.zeros((0, 4), np.uint64)
+    for level in range(d_max, 0, -1):
+        at = depth == level
+        prefix = np.concatenate([prefix,
+                                 words[at] >> np.uint64(64 - level)])
+        node_h = np.concatenate([node_h, leaf_h[at]])
+        parent, inv = np.unique(prefix >> np.uint64(1), return_inverse=True)
+        right = (prefix & np.uint64(1)).astype(bool)
+        pre = np.zeros((len(parent), 12), np.uint64)
+        pre[inv[~right], 0:4] = node_h[~right]
+        pre[inv[right], 4:8] = node_h[right]
+        prefix, node_h = parent, _hash_batch(pre, dev)
+        hashes.append(node_h)
+        preimages.append(pre)
+    root_h = node_h if d_max else leaf_h
+    assert len(root_h) == 1
+
+    hashes = np.concatenate(hashes)
+    preimages = np.concatenate(preimages)
+    hexed = hashes.astype(">u8").tobytes().hex()
+    db.multi_write(dict(zip(
+        (hexed[i:i + 64] for i in range(0, len(hexed), 64)),
+        preimages.tolist())))
+    values = [fea8_to_scalar(row) for row in limbs.tolist()]
+    return StateTree(tuple(int(v) for v in root_h[0]), keys, values,
+                     len(hashes), d_max)
+
+
+def _present_key(db, root: tuple, rng: np.random.Generator) -> tuple:
+    """A key of the tree under `root`, found by a random walk from the root
+    to a leaf (a branch's empty side is never taken)."""
+    if root == ZERO4:
+        raise ValueError("the tree is empty: no key to draw")
+    bits, r = [], root
+    while True:
+        node = db.read(r)
+        if node[8] == 1:   # leaf capacity marker
+            return ku.join_key(bits, tuple(node[0:4]))
+        bit = int(rng.integers(0, 2))
+        if tuple(node[4 * bit:4 * bit + 4]) == ZERO4:
+            bit = 1 - bit
+        bits.append(bit)
+        r = tuple(node[4 * bit:4 * bit + 4])
+
+
+def storage_batch(smt, root, seed: int,
+                  poseidon_capacity: int) -> tuple[list, int]:
+    """A chained stream of storage actions over the tree of `root` (the
+    `new_root` of action k is the `root` of action k + 1), from
+    np.random.default_rng(seed), in the mix of the SLOAD/SSTORE, balance
+    and nonce traffic of a batch of ERC-20 and ETH transfers:
+
+      30 % get of a key in the tree, 10 % get of an absent key,
+      50 % set updating a key in the tree, 8 % set inserting a fresh key,
+      2 % set to 0 (a delete).
+
+    Sets run through `smt.set`, which writes their nodes into `smt.db`. The
+    batch closes on the PoseidonG counter, as the reference closes a batch
+    on its resource counters: actions are added while the sum of their
+    `storage.hash_count` stays within `poseidon_capacity`. Returns the
+    actions and the storage rows they take."""
+    rng = np.random.default_rng(seed)
+    db = smt.db
+    root = tuple(int(v) for v in root)
+    actions, rows, used = [], 0, 0
+
+    def fresh_key():
+        return tuple(int(v) for v in rng.integers(0, gl.P, 4,
+                                                  dtype=np.uint64))
+
+    def fresh_value():
+        return int.from_bytes(rng.bytes(32), "little") or 1
+
+    while True:
+        u = rng.random()
+        if u < 0.40:
+            key = _present_key(db, root, rng) if u < 0.30 else fresh_key()
+            act = {"op": "get", "root": root, "key": key,
+                   "value": smt.get(root, key).value}
+        else:
+            if u < 0.90:
+                key, value = _present_key(db, root, rng), fresh_value()
+            elif u < 0.98:
+                key, value = fresh_key(), fresh_value()
+            else:
+                key, value = _present_key(db, root, rng), 0
+            act = {"op": "set", "root": root, "key": key, "value": value,
+                   "new_root": smt.set(root, key, value).new_root}
+        cost = storage.hash_count(act, db)
+        if used + cost > poseidon_capacity:
+            return actions, rows
+        bits = ku.split_key(key)
+        old = storage._walk(db, root, bits)
+        new = old if act["op"] == "get" else storage._walk(
+            db, act["new_root"], bits)
+        used += cost
+        rows += max(len(old), len(new))
+        actions.append(act)
+        root = act.get("new_root", root)
+
+
+def small_storage_batch(device=None) -> tuple:
+    """The 2^9 storage batch of the CPU tests: `storage_batch` (seed 7)
+    over a 4-key `state_tree` (seed 7), closed on the PoseidonG capacity
+    of an `Executor` at its default sizes, the JAX package's. Returns the
+    database holding the trees and the actions."""
+    from ..hashdb import Database, Smt
+    from .executor import Executor
+
+    db = Database()
+    tree = state_tree(db, 4, 7, device)
+    cap = Executor(device=device).counters(
+        BatchActions())["poseidon_g_capacity"] - 1
+    actions, _ = storage_batch(Smt(db), tree.root, 7, cap)
+    return db, actions

@@ -3,12 +3,13 @@ prove each one with its own eSTARK.
 
 Counterpart of `zkevm_prover_tpu/executor/executor.py` (reference:
 src/executor/executor.cpp:487-610). Only the SMs in `_SM_MODULES` are ported
-so far; storage, keccak, sha256 and hashp actions raise NotImplementedError.
+so far; keccak, sha256 and hashp actions raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 
@@ -17,7 +18,7 @@ from ..stark.prover import StarkProver
 from ..stark.setup import StarkSetup
 from ..stark.verifier import verify
 from .sm import (arith, binary, climb_key, mem_align, memory, padding_pg,
-                 poseidon_g)
+                 poseidon_g, storage)
 
 
 @dataclasses.dataclass
@@ -38,14 +39,18 @@ class BatchActions:
     hashp: list = dataclasses.field(default_factory=list)
 
 
-_SM_MODULES = {"binary": binary, "memory": memory, "arith": arith,
-               "mem_align": mem_align, "poseidon_g": poseidon_g,
-               "padding_pg": padding_pg, "climb_key": climb_key}
+# in execution order: storage first, since it emits poseidon_g and climb_key
+# actions
+_SM_MODULES = {"storage": storage, "binary": binary, "memory": memory,
+               "arith": arith, "mem_align": mem_align,
+               "poseidon_g": poseidon_g, "padding_pg": padding_pg,
+               "climb_key": climb_key}
 
 # per-SM trace degree (the JAX package's defaults for the ported SMs); binary's
 # nibble-semantics table needs 2816 rows
 DEFAULT_BITS = {"binary": 13, "memory": 9, "arith": 9, "mem_align": 9,
-                "poseidon_g": 9, "padding_pg": 9, "climb_key": 10}
+                "poseidon_g": 9, "padding_pg": 9, "climb_key": 10,
+                "storage": 9}
 
 
 class Executor:
@@ -62,6 +67,7 @@ class Executor:
         self.n_queries = n_queries
         self.device = resolve_device(device)
         self._provers: dict[str, StarkProver] = {}
+        self.execute_times: dict[str, float] = {}
 
     def binary_slice_bits(self) -> int:
         """Largest slice width whose semantics table fits the binary domain
@@ -83,33 +89,42 @@ class Executor:
             self._provers[name] = StarkProver(setup, device=self.device)
         return self._provers[name]
 
-    def execute(self, actions: BatchActions) -> dict[str, np.ndarray]:
-        """Fill each SM's committed columns (reference: Executor::execute)."""
+    def execute(self, actions: BatchActions,
+                db=None) -> dict[str, np.ndarray]:
+        """Fill each SM's committed columns (reference: Executor::execute).
+
+        Runs the Storage SM first: its tree-walk replay emits PoseidonG /
+        ClimbKey requests that join the batch before those SMs fill their
+        traces (the reference's Storage→ClimbKey / →PoseidonG dependency
+        joins, executor.cpp:648-701). `db` is the hashdb database holding
+        the trees the storage actions walk. `execute_times` holds the
+        seconds of each SM's witness in the last call."""
         for field in dataclasses.fields(actions):
             if field.name not in _SM_MODULES and getattr(actions, field.name):
                 raise NotImplementedError(
                     f"{field.name} actions: that state machine is not ported")
+        if actions.storage and db is None:
+            raise ValueError("storage actions require the hashdb database "
+                             "(pass db=smt.db)")
         out = {}
-        nb = self.n_bits
-        if actions.binary:
-            out["binary"] = binary.execute(actions.binary, nb["binary"],
+        self.execute_times = {}
+        for name, mod in _SM_MODULES.items():   # storage first
+            acts = getattr(actions, name)
+            if not acts:
+                continue
+            t0 = time.perf_counter()
+            if name == "storage":
+                out[name], emitted = storage.execute(acts, self.n_bits[name],
+                                                     db)
+                actions.poseidon_g = actions.poseidon_g + emitted["poseidon_g"]
+                actions.climb_key = actions.climb_key + emitted["climb_key"]
+            elif name == "binary":
+                out[name] = binary.execute(acts, self.n_bits[name],
                                            self.binary_slice_bits())
-        if actions.memory:
-            out["memory"], _ = memory.execute(actions.memory, nb["memory"])
-        if actions.arith:
-            out["arith"] = arith.execute(actions.arith, nb["arith"])
-        if actions.mem_align:
-            out["mem_align"], _ = mem_align.execute(actions.mem_align,
-                                                    nb["mem_align"])
-        if actions.poseidon_g:
-            out["poseidon_g"] = poseidon_g.execute(actions.poseidon_g,
-                                                   nb["poseidon_g"])
-        if actions.padding_pg:
-            out["padding_pg"], _ = padding_pg.execute(actions.padding_pg,
-                                                      nb["padding_pg"])
-        if actions.climb_key:
-            out["climb_key"] = climb_key.execute(actions.climb_key,
-                                                 nb["climb_key"])
+            else:
+                res = mod.execute(acts, self.n_bits[name])
+                out[name] = res[0] if isinstance(res, tuple) else res
+            self.execute_times[name] = time.perf_counter() - t0
         return out
 
     def counters(self, actions: BatchActions) -> dict[str, int]:
@@ -135,9 +150,10 @@ class Executor:
             // (64 // climb_key.params_for(nb["climb_key"])[0]),
         }
 
-    def prove_all(self, actions: BatchActions) -> dict[str, object]:
+    def prove_all(self, actions: BatchActions,
+                  db=None) -> dict[str, object]:
         """Prove every active SM; returns {name: (prover, proof)}."""
-        return self.prove_traces(self.execute(actions))
+        return self.prove_traces(self.execute(actions, db=db))
 
     def prove_traces(self, traces: dict[str, np.ndarray]) -> dict[str, object]:
         """Prove pre-computed commit pols (the resume half of the

@@ -220,20 +220,21 @@ class StarkProver:
     # -- phases --------------------------------------------------------------
 
     def _phase2(self, cm1_n, challenges, publics):
+        """h1/h2 of every lookup; returns (cm2, one ok flag per lookup)."""
         s = self.setup
         b = self._bindings({1: cm1_n}, self.const_n, challenges, publics,
                            ext=False)
-        cols, ok = [], True
+        cols, oks = [], []
         for plan in s.lookups:
             fv = ex.eval_array(plan.f_exp, b)
             tv = ex.eval_array(plan.t_exp, b)
             fv = fv[:, None] if fv.ndim == 1 else fv
             tv = tv[:, None] if tv.ndim == 1 else tv
-            h1, h2, ok_i = calculate_h1h2(fv, tv)
+            h1, h2, ok = calculate_h1h2(fv, tv)
             cols += [h1, h2]
-            ok = ok and ok_i
+            oks.append(ok)
         cm2 = torch.cat(cols, dim=1) if cols else self._zeros(s.n, 0)
-        return cm2, ok
+        return cm2, oks
 
     def _phase3(self, cm1_n, cm2_n, challenges, publics):
         s = self.setup
@@ -354,6 +355,65 @@ class StarkProver:
         return frimod.fold_layer(vals, from_bits - to_bits, special_x,
                                  shift_inv, w_inv)
 
+    # -- satisfiability check --------------------------------------------------
+
+    def check_constraints(self, cm1_values, publics=None,
+                          quick: bool = False) -> list:
+        """Diagnostic: run phases 1-3 and evaluate every constraint on the
+        trace domain; returns the indices of violated constraints, then
+        `"plookup:i"` for each lookup i whose f values are not all in t
+        (empty = ok). The role of the reference's zkassert in calculateZ
+        (polinomial.hpp:606).
+
+        quick=True takes the JAX package's fixed pseudo-random challenges
+        (`default_rng(0xC0FFEE)`) instead of the transcript's and skips the
+        LDE and Merkle commits: identities that hold for the honest
+        transcript hold identically in the challenge variables, so this is
+        a sound satisfiability check, and both packages return the same
+        list for the same trace. Runs on the prover's device."""
+        s = self.setup
+        dev = self.device
+        cm1_values = np.asarray(cm1_values, dtype=np.uint64)
+        if publics is None:
+            publics = [
+                int(cm1_values[row, cid]) for (_, cid, row) in s.air.publics
+            ]
+        publics_dev = gl.from_u64(np.array(publics, dtype=np.uint64), dev)
+        cm1_n = gl.from_u64(cm1_values, dev)
+        if quick:
+            rng = np.random.default_rng(0xC0FFEE)
+            challenges = rng.integers(1, 1 << 63, size=(8, 3)).astype(
+                np.uint64)
+            ch = gl.from_u64(challenges, dev)
+            cm2_n, oks = self._phase2(cm1_n, ch, publics_dev)
+        else:
+            transcript = self.scheme.Transcript()
+            transcript.put(self.scheme.root_ints(self.verkey))
+            transcript.put(publics)
+            challenges = np.zeros((8, 3), dtype=np.uint64)
+            tree1 = self.scheme.commit(self._extend(cm1_n))
+            transcript.put(self.scheme.root_ints(tree1.root()))
+            challenges[0] = transcript.get_field3()
+            challenges[1] = transcript.get_field3()
+            cm2_n, oks = self._phase2(cm1_n, gl.from_u64(challenges, dev),
+                                      publics_dev)
+            cm2_2ns = (self._extend(cm2_n) if s.section_width[2]
+                       else self._zeros(s.n_ext, 0))
+            tree2 = self.scheme.commit(cm2_2ns)
+            transcript.put(self.scheme.root_ints(tree2.root()))
+            challenges[2] = transcript.get_field3()
+            challenges[3] = transcript.get_field3()
+            ch = gl.from_u64(challenges, dev)
+        cm3_n = self._phase3(cm1_n, cm2_n, ch, publics_dev)
+        b = self._bindings(
+            {1: cm1_n, 2: cm2_n, 3: cm3_n}, self.const_n, ch, publics_dev,
+            ext=False,
+            x=nttmod.geometric_powers(gl.w(s.n_bits), s.n, dev))
+        bad: list = [i for i, c in enumerate(s.constraints)
+                     if bool((ex.eval_array(c, b) != 0).any())]
+        bad += [f"plookup:{i}" for i, ok in enumerate(oks) if not ok]
+        return bad
+
     # -- main entry ------------------------------------------------------------
 
     def prove(self, cm1_values, publics=None) -> StarkProof:
@@ -391,9 +451,9 @@ class StarkProver:
         challenges[0] = transcript.get_field3()
         challenges[1] = transcript.get_field3()
         ch = gl.from_u64(challenges, dev)
-        cm2_n, ok = self._phase2(cm1_n, ch, publics_dev)
+        cm2_n, oks = self._phase2(cm1_n, ch, publics_dev)
         self._t("ph2_h1h2")
-        if not ok:
+        if not all(oks):
             raise ValueError("plookup violation: f value not present in t")
         cm2_2ns = (self._extend(cm2_n) if s.section_width[2]
                    else self._zeros(s.n_ext, 0))

@@ -56,13 +56,11 @@ Phases (any failure exits nonzero; no phase catches and continues):
     and read just after `verify_all`: the fused Merkle kernel (every commit)
     and the mxu96 permutation (the verifier's paths) must both have run,
     and no other mode's kernel;
- 6. every other mode on the path: mem_align filled to its capacity at
-    2^(`--bits` - 1) rows (one bit below the batch, to keep the run within
-    half of its time limit) proved under each mode, counters zeroed before
-    and read after: under mxu96 the commits go through the fused Merkle
-    kernel, under every other mode through that mode's permutation and
-    never the fused kernel; each proof must equal the mxu96 proof byte for
-    byte;
+ 6. every other mode on the path: mem_align's full-width trace re-proved
+    under each mode, counters zeroed before and read after: under mxu96 the
+    commits go through the fused Merkle kernel, under every other mode
+    through that mode's permutation and never the fused kernel; each proof
+    must equal the mxu96 proof byte for byte;
  7. a steady re-prove of arith (the widest AIR), timed alone and under
     torch.profiler (device busy time, idle share, the Poseidon kernels'
     share, the top device ops);
@@ -514,20 +512,11 @@ def run_batch(torch, pcu, bits: int, arith_bits: int) -> dict:
     return out, launches
 
 
-def run_modes(torch, pcu, bits: int) -> dict:
-    """mem_align filled to its capacity at 2^`bits` rows, proved under every
-    mode, mxu96 first, each prove steady (the const tree built before);
-    every proof must equal mxu96's byte for byte. Returns each mode's
-    launches in its prove (under mxu96, the fused Merkle kernel's)."""
-    from zkevm_prover_tpu_torch.executor import BatchActions, Executor
-    from zkevm_prover_tpu_torch.executor import examples
-
-    ex = Executor(n_bits={"mem_align": bits}, device="cuda")
-    trace = ex.execute(BatchActions(
-        mem_align=examples.full_batch(ex)["mem_align"]))["mem_align"]
-    prover = ex._prover("mem_align")
-    prover.const_tree   # noqa: B018 — built here, outside the timed proves
-    ref = None
+def run_modes(torch, pcu, trace, prover, proof) -> dict:
+    """mem_align's full-width trace re-proved under every mode, mxu96 first
+    for its steady time; returns each mode's launches in its prove (under
+    mxu96, the fused Merkle kernel's)."""
+    ref = proof.to_json()
     launches, times = {}, {}
     try:
         for mode in ("mxu96", "1d", "2d", "blocked", "mxu", "mxu24"):
@@ -546,9 +535,7 @@ def run_modes(torch, pcu, bits: int) -> dict:
             if any(n for m, n in pcu.launches.items()
                    if m not in (key, mode)):
                 _fail(f"mode {mode}: another kernel ran: {pcu.launches}")
-            if ref is None:
-                ref = got
-            elif got != ref:
+            if got != ref:
                 _fail(f"mode {mode}: mem_align proof differs from mxu96's")
     finally:
         pcu.MODE = "mxu96"
@@ -819,9 +806,8 @@ def run(args, torch, child, cpu_path) -> int:
             path: counts[kernel] for path, counts in paths.items()}
         entries[kernel]["launches"] = sum(
             entries[kernel]["launches_by_path"].values())
-    # one bit below the batch: the byte-identity of every mode holds at any
-    # size, and the whole run stays within half of its time limit
-    for mode, n in run_modes(torch, pcu, args.bits - 1).items():
+    trace, prover, proof = batch["mem_align"]
+    for mode, n in run_modes(torch, pcu, trace, prover, proof).items():
         if mode != "mxu96":
             entries[mode]["launches"] = n
     trace, prover, _ = batch["arith"]

@@ -198,6 +198,37 @@ def test_check_constraints_with_the_transcript(name):
         bad, quick=True) != []
 
 
+@pytest.mark.parametrize("name", ["fibonacci", "lookup", "permutation",
+                                  "connection"])
+def test_transcript_challenges_are_the_proofs(name):
+    """The challenges 0-3 that check_constraints(quick=False) evaluates
+    under are the ones the proof's transcript gives: replayed with the JAX
+    package's transcript from the verkey, the publics and the stage-1 and
+    stage-2 roots of the port's proof of the same trace."""
+    from zkevm_prover_tpu.ops.transcript import Transcript as JTranscript
+    from zkevm_prover_tpu_torch.ops import goldilocks as gl
+    from zkevm_prover_tpu_torch.stark import examples as toy
+
+    air, trace = toy.all_air_traces()[name]
+    prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device="cpu")
+    proof = prover.prove(trace)
+    publics = [int(trace[row, cid]) for (_, cid, row) in air.publics]
+    cm1_n = gl.from_u64(np.asarray(trace, dtype=np.uint64), prover.device)
+    publics_dev = gl.from_u64(np.array(publics, dtype=np.uint64),
+                              prover.device)
+    challenges = prover._stages_1_2(cm1_n, publics, publics_dev)[1]
+    t = JTranscript()
+    t.put([int(v) for v in np.ravel(prover.verkey)])
+    t.put(publics)
+    want = []
+    for root in proof.roots[:2]:
+        t.put([int(v) for v in np.ravel(root)])
+        want += [t.get_field3(), t.get_field3()]
+    np.testing.assert_array_equal(challenges[:4],
+                                  np.array(want, dtype=np.uint64))
+
+
 def test_state_tree_matches_sequential_jax_sets():
     db = Database()
     tree = examples.state_tree(db, 64, 11, "cpu")

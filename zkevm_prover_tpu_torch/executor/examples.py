@@ -345,12 +345,8 @@ def storage_batch(smt, root, seed: int,
         cost = storage.hash_count(act, db)
         if used + cost > poseidon_capacity:
             return actions, rows
-        bits = ku.split_key(key)
-        old = storage._walk(db, root, bits)
-        new = old if act["op"] == "get" else storage._walk(
-            db, act["new_root"], bits)
         used += cost
-        rows += max(len(old), len(new))
+        rows += storage.rows(act, db)
         actions.append(act)
         root = act.get("new_root", root)
 

@@ -240,19 +240,30 @@ def _walk(db, root: tuple, path_bits: list[int]):
         level += 1
 
 
+def _walks(act: dict, db):
+    """One action's two walks: (key, path bits, same, old walk, new walk,
+    depth). A get walks its one tree (`same`); the action takes one trace
+    row per level of the deeper walk."""
+    key = tuple(int(v) for v in act["key"])
+    bits = ku.split_key(key)
+    same = act["op"] == "get"
+    ow = _walk(db, act["root"], bits)
+    nw = ow if same else _walk(db, act["new_root"], bits)
+    return key, bits, same, ow, nw, max(len(ow), len(nw))
+
+
+def rows(act: dict, db) -> int:
+    """Storage trace rows this action takes."""
+    return _walks(act, db)[5]
+
+
 def hash_count(act: dict, db) -> int:
     """PoseidonG permutations this action's trace rows consume — the value
     the PHC column carries at the action's START row. The Main SM commits
     incCounter = hash_count + 2 (key-derivation hashes) on sRD/sWR rows
     (reference proofHashCounter role, main_executor.cpp:1154,1393), and the
     combined AIR binds it to PHC through the storage START lookup."""
-    key = tuple(int(v) for v in act["key"])
-    bits = ku.split_key(key)
-    old_root = tuple(int(v) for v in act["root"])
-    same = act["op"] == "get"
-    new_root = old_root if same else tuple(int(v) for v in act["new_root"])
-    ow = _walk(db, old_root, bits)
-    nw = ow if same else _walk(db, new_root, bits)
+    key, bits, same, ow, nw, _ = _walks(act, db)
 
     def side(walk):
         cnt = 0
@@ -286,16 +297,10 @@ def execute(actions: list[dict], n_bits: int, db) -> tuple[np.ndarray, dict]:
 
     row = 0
     for ai, act in enumerate(actions):
-        key = tuple(int(v) for v in act["key"])
-        bits = ku.split_key(key)
+        key, bits, same, ow, nw, depth = _walks(act, db)
         old_root = tuple(int(v) for v in act["root"])
         new_root = (tuple(int(v) for v in act["new_root"])
                     if act["op"] == "set" else old_root)
-        same = act["op"] == "get"
-
-        ow = _walk(db, old_root, bits)
-        nw = ow if same else _walk(db, new_root, bits)
-        depth = max(len(ow), len(nw))
         if row + depth > n:
             raise StorageError("storage trace overflow")
 

@@ -355,6 +355,46 @@ class StarkProver:
         return frimod.fold_layer(vals, from_bits - to_bits, special_x,
                                  shift_inv, w_inv)
 
+    def _stages_1_2(self, cm1_n, publics, publics_dev,
+                    mark=lambda label: None):
+        """Phases 1 and 2 under the Fiat-Shamir transcript, shared by prove()
+        and check_constraints(quick=False) so that both draw the same
+        challenges: seed the transcript with the verkey and publics, extend
+        and commit stage 1, draw challenges 0-1, h1/h2, extend and commit
+        stage 2, draw challenges 2-3. `mark(label)` is called after each
+        step (prove's phase timer). Returns (transcript, challenges (8, 3)
+        uint64, cm1_2ns, tree1, cm2_n, lookup ok flags, cm2_2ns, tree2)."""
+        s = self.setup
+        transcript = self.scheme.Transcript()
+        transcript.put(self.scheme.root_ints(self.verkey))
+        transcript.put(publics)
+        mark("setup_const_tree")
+
+        challenges = np.zeros((8, 3), dtype=np.uint64)
+
+        # ---- phase 1
+        cm1_2ns = self._extend(cm1_n)
+        mark("ph1_extend")
+        tree1 = self.scheme.commit(cm1_2ns)
+        transcript.put(self.scheme.root_ints(tree1.root()))
+        mark("ph1_commit")
+
+        # ---- phase 2
+        challenges[0] = transcript.get_field3()
+        challenges[1] = transcript.get_field3()
+        cm2_n, oks = self._phase2(cm1_n, gl.from_u64(challenges, self.device),
+                                  publics_dev)
+        mark("ph2_h1h2")
+        cm2_2ns = (self._extend(cm2_n) if s.section_width[2]
+                   else self._zeros(s.n_ext, 0))
+        tree2 = self.scheme.commit(cm2_2ns)
+        transcript.put(self.scheme.root_ints(tree2.root()))
+        mark("ph2_commit")
+        challenges[2] = transcript.get_field3()
+        challenges[3] = transcript.get_field3()
+        return (transcript, challenges, cm1_2ns, tree1, cm2_n, oks, cm2_2ns,
+                tree2)
+
     # -- satisfiability check --------------------------------------------------
 
     def check_constraints(self, cm1_values, publics=None,
@@ -387,22 +427,8 @@ class StarkProver:
             ch = gl.from_u64(challenges, dev)
             cm2_n, oks = self._phase2(cm1_n, ch, publics_dev)
         else:
-            transcript = self.scheme.Transcript()
-            transcript.put(self.scheme.root_ints(self.verkey))
-            transcript.put(publics)
-            challenges = np.zeros((8, 3), dtype=np.uint64)
-            tree1 = self.scheme.commit(self._extend(cm1_n))
-            transcript.put(self.scheme.root_ints(tree1.root()))
-            challenges[0] = transcript.get_field3()
-            challenges[1] = transcript.get_field3()
-            cm2_n, oks = self._phase2(cm1_n, gl.from_u64(challenges, dev),
-                                      publics_dev)
-            cm2_2ns = (self._extend(cm2_n) if s.section_width[2]
-                       else self._zeros(s.n_ext, 0))
-            tree2 = self.scheme.commit(cm2_2ns)
-            transcript.put(self.scheme.root_ints(tree2.root()))
-            challenges[2] = transcript.get_field3()
-            challenges[3] = transcript.get_field3()
+            stages = self._stages_1_2(cm1_n, publics, publics_dev)
+            challenges, cm2_n, oks = stages[1], stages[4], stages[5]
             ch = gl.from_u64(challenges, dev)
         cm3_n = self._phase3(cm1_n, cm2_n, ch, publics_dev)
         b = self._bindings(
@@ -433,37 +459,12 @@ class StarkProver:
         self._t("start")
         cm1_n = gl.from_u64(cm1_values, dev)
 
-        transcript = self.scheme.Transcript()
-        transcript.put(self.scheme.root_ints(self.verkey))
-        transcript.put(publics)
-        self._t("setup_const_tree")
-
-        challenges = np.zeros((8, 3), dtype=np.uint64)
-
-        # ---- phase 1
-        cm1_2ns = self._extend(cm1_n)
-        self._t("ph1_extend")
-        tree1 = self.scheme.commit(cm1_2ns)
-        transcript.put(self.scheme.root_ints(tree1.root()))
-        self._t("ph1_commit")
-
-        # ---- phase 2
-        challenges[0] = transcript.get_field3()
-        challenges[1] = transcript.get_field3()
-        ch = gl.from_u64(challenges, dev)
-        cm2_n, oks = self._phase2(cm1_n, ch, publics_dev)
-        self._t("ph2_h1h2")
+        (transcript, challenges, cm1_2ns, tree1, cm2_n, oks, cm2_2ns,
+         tree2) = self._stages_1_2(cm1_n, publics, publics_dev, self._t)
         if not all(oks):
             raise ValueError("plookup violation: f value not present in t")
-        cm2_2ns = (self._extend(cm2_n) if s.section_width[2]
-                   else self._zeros(s.n_ext, 0))
-        tree2 = self.scheme.commit(cm2_2ns)
-        transcript.put(self.scheme.root_ints(tree2.root()))
-        self._t("ph2_commit")
 
         # ---- phase 3
-        challenges[2] = transcript.get_field3()
-        challenges[3] = transcript.get_field3()
         ch = gl.from_u64(challenges, dev)
         cm3_n = self._phase3(cm1_n, cm2_n, ch, publics_dev)
         self._t("ph3_z")

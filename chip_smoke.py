@@ -6,8 +6,8 @@ Phases (any failure exits nonzero; no phase catches and continues):
 
  1. card line: name and power limit from nvidia-smi;
  2. build every CUDA kernel of the port from `zkevm_prover_tpu_torch/csrc`
-    (one nvcc per library source, all at once: today the one poseidon_gl
-    library);
+    (one nvcc per library source, all at once: the poseidon_gl library and
+    the hash library, csrc/hash.cu);
  3. every Poseidon mode's kernel (`poseidon_cuda.MODES`) against the plain
     torch permutation on the card, bit for bit: the r05 batch (pinned
     checksum), 515 random + 2 edge states, 2^22 states and a ragged
@@ -26,11 +26,13 @@ Phases (any failure exits nonzero; no phase catches and continues):
     (`merkle.merkelize_levels_plain`) at 2^22 x 48 and against the chunked
     tree through kernel 1 at 2^21 x 189 (arith's stage-1 section), every
     level; fused, chunked and plain timed beside `merkle_bound`;
- 4. small proofs on the card against the port's CPU proofs, byte for byte:
-    the four toy AIRs, PoseidonG at 2^8, the mixed batch of the seven
-    co-processor SMs at 2^9 through `Executor.prove_all`, and the small
-    storage batch (storage 2^9 with its emitted PoseidonG 2^9 and ClimbKey
-    2^10, `executor.examples.small_storage_batch`);
+ 3c. the hash kernels (csrc/hash.cu): Keccak-f and the SHA-256 compression
+    against their plain torch twins on the card, bit for bit, on 515 random
+    instances and on 2^20 + 37; against the host oracles (`_keccak_f_host`
+    on 64 states, hashlib on `sha256_blocks` of 64 single-block messages);
+    each timed at 2^10, 2^16, 2^20 and 2^22 instances beside the plain time
+    and its bound (`keccak_bound`, `sha256_bound`: 32-bit logic, shift and
+    add operations at the integer rate against the bytes at 3.35 TB/s);
  4b. the state tree: `executor.examples.state_tree` at 2^12 keys on the
     card gives the CPU's root; then at 2^20 keys (`TREE_BITS`) on the
     card, its permutations through the mxu96 kernel (counters zeroed just
@@ -47,6 +49,25 @@ Phases (any failure exits nonzero; no phase catches and continues):
     rejected. Counters zeroed just before `prove_all` and read after
     `verify_all`: the fused Merkle kernel and mxu96 must have run, and no
     other mode's kernel;
+ 4d. the hash batch at full width (`executor.examples.hash_batch`): Keccak
+    messages through PaddingKK and KeccakF (24 rounds, pack 40, 2^21, 520
+    permutations), SHA-256 messages through PaddingSha256 (its compression
+    chain on the sha256_compress kernel, one launch per block) and Sha256F
+    (64 rounds, pack 40, 2^22, 1,320 compressions): per SM the AIR's host
+    seconds, the executor's, the prove's and its phases, peak device
+    memory; `verify_all`, a tampered proof of each SM rejected, and the
+    digests of PaddingKK's single-block messages equal to
+    `keccak256_blocks` of them on the card (the keccak_f kernel). Counters
+    zeroed just before and read just after: the fused Merkle kernel,
+    mxu96, sha256_compress and keccak_f must have run, and no other
+    Poseidon mode;
+ 4e. small proofs on the card against the port's CPU proofs (made by a
+    child process from the start), byte for byte: the four toy AIRs,
+    PoseidonG at 2^8, the mixed batch of the seven co-processor SMs at 2^9
+    through `Executor.prove_all`, the small storage batch (storage 2^9 with
+    its emitted PoseidonG 2^9 and ClimbKey 2^10,
+    `executor.examples.small_storage_batch`) and the small hash batch
+    (`executor.examples.small_hash_batch`);
  5. the main path: the co-processor batch at full width under
     `poseidon_cuda.MODE = "mxu96"` — every ported SM filled to its capacity
     less one group (`executor.examples.full_batch`), each executed and
@@ -64,10 +85,11 @@ Phases (any failure exits nonzero; no phase catches and continues):
  7. a steady re-prove of arith (the widest AIR), timed alone and under
     torch.profiler (device busy time, idle share, the Poseidon kernels'
     share, the top device ops);
- 8. a kernels line (JSON: each mode's kernel and the fused Merkle kernel,
-    its launches on the main paths, summed and by path (the co-processor
-    batch, the state tree, the storage batch), its time, its bound and its
-    plain version's time) and a final line {"ok": true, "device": {...}}.
+ 8. a kernels line (JSON: each mode's kernel, the fused Merkle kernel and
+    the two hash kernels, its launches on the main paths, summed and by
+    path (the co-processor batch, the state tree, the storage batch, the
+    hash batch), its time, its bound and its plain version's time) and a
+    final line {"ok": true, "device": {...}}.
 
 It needs the CUDA toolkit (nvcc) and one card; without CUDA it exits
 nonzero before printing anything.
@@ -111,6 +133,41 @@ def _bound(perms: int, n_bytes: int) -> tuple[float, str]:
     bytes_s = n_bytes / HBM_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
                                        else "bytes")
+
+
+# The least work of the hash kernels (csrc/hash.cu): 32-bit logic, shift
+# and add operations, at the rate of sm_90's 32-bit integer pipe (64
+# operations/clk/SM, the IMAD rate above). Keccak-f per round: theta's
+# column parities 5 lanes x 2 halves x 2 three-input XORs, its rotations by
+# one 5 x 2 funnel shifts and its application 25 x 2 three-input XORs, rho
+# 24 x 2 funnel shifts, chi 25 x 2 LOP3s, iota 2 XORs: 180, x 24 rounds.
+# SHA-256: the schedule's 48 words x (sigma0 and sigma1 each 2 rotations, a
+# shift and a three-input XOR; 2 three-input adds), 64 rounds x (Sigma1 and
+# Sigma0 each 3 rotations and a three-input XOR, Ch and Maj one LOP3 each,
+# 4 three-input adds), 8 feed-forward adds. Every word moves as an int64:
+# Keccak 25 in and 25 out, SHA-256 24 in and 8 out.
+INT_OPS_PER_S = IMAD_PER_S
+KECCAK_OPS = 24 * (5 * 2 * 2 + 5 * 2 + 25 * 2 + 24 * 2 + 25 * 2 + 2)
+SHA256_OPS = 48 * (2 * 4 + 2) + 64 * (2 * 4 + 2 + 4) + 8
+KECCAK_BYTES = 25 * 8 * 2
+SHA256_BYTES = (8 + 16 + 8) * 8
+
+
+def _int_bound(n: int, ops: int, n_bytes: int) -> tuple[float, str]:
+    ops_s = n * ops / INT_OPS_PER_S
+    bytes_s = n * n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def keccak_bound(n: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for n Keccak-f permutations."""
+    return _int_bound(n, KECCAK_OPS, KECCAK_BYTES)
+
+
+def sha256_bound(n: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for n SHA-256 compressions."""
+    return _int_bound(n, SHA256_OPS, SHA256_BYTES)
 
 
 def poseidon_bound(h: int) -> tuple[float, str]:
@@ -355,14 +412,105 @@ def check_ntt(torch, gl) -> None:
          f"e[0,0] = {got}")
 
 
+# the program each hash kernel replaces (XLA-fused on the TPU, no
+# pallas_call), and its source
+HASH_KERNELS = {
+    "keccak_f": ("zkevm_prover_tpu/ops/keccak.py:56", keccak_bound),
+    "sha256_compress": ("zkevm_prover_tpu/ops/sha256.py:40", sha256_bound),
+}
+
+
+def check_hash(torch, gl) -> dict:
+    """The Keccak-f and SHA-256 kernels against their plain twins on the
+    card (515 random and 2^20 + 37 instances) and the host oracles, each
+    timed at 2^10, 2^16, 2^20 and 2^22 instances; returns the kernels-line
+    entry of each (without `launches`)."""
+    import hashlib
+
+    from zkevm_prover_tpu_torch.ops import keccak, sha256
+
+    def inputs(name, n, seed):
+        rng = np.random.default_rng(seed)
+        if name == "keccak_f":
+            return (gl.from_u64(rng.integers(0, 1 << 64, (n, 25),
+                                             dtype=np.uint64), "cuda"),)
+        return tuple(gl.from_u64(rng.integers(0, 1 << 32, (n, w),
+                                              dtype=np.uint64), "cuda")
+                     for w in (8, 16))
+
+    fns = {"keccak_f": (keccak.keccak_f, keccak.keccak_f_plain),
+           "sha256_compress": (sha256.sha256_compress,
+                               sha256.sha256_compress_plain)}
+    for name, (kernel, plain) in fns.items():
+        for n, seed in ((515, 60), ((1 << 20) + 37, 61)):
+            args = inputs(name, n, seed)
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).any(dim=1).nonzero()[:4, 0].tolist()
+                _fail(f"{name} kernel != plain on {n} instances, rows {bad}")
+            del args, got, want
+    states = np.random.default_rng(62).integers(0, 1 << 64, (64, 25),
+                                                dtype=np.uint64)
+    out = gl.to_u64(keccak.keccak_f(gl.from_u64(states, "cuda")))
+    for row, got in zip(states, out):
+        if [int(v) for v in got] != keccak._keccak_f_host(
+                [int(v) for v in row]):
+            _fail("keccak_f kernel != _keccak_f_host")
+    rng = np.random.default_rng(63)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 56, 64)]
+    blocks = np.zeros((64, 64), dtype=np.uint8)
+    for i, m in enumerate(msgs):
+        blocks[i, :len(m)] = bytearray(m)
+        blocks[i, len(m)] = 0x80
+        blocks[i, 56:] = np.frombuffer((8 * len(m)).to_bytes(8, "big"),
+                                       dtype=np.uint8)
+    digests = sha256.sha256_blocks(blocks, device="cuda").cpu().numpy()
+    if any(bytes(d) != hashlib.sha256(m).digest()
+           for m, d in zip(msgs, digests)):
+        _fail("sha256_blocks on the card != hashlib")
+    _log("hash: keccak_f and sha256_compress kernels == plain on 515 and "
+         "2^20 + 37 instances; keccak_f == _keccak_f_host on 64 states, "
+         "sha256_blocks == hashlib on 64 single-block messages")
+    _log(f"hash bounds per instance: keccak_f {KECCAK_OPS} 32-bit "
+         f"operations, {KECCAK_BYTES} bytes; sha256_compress {SHA256_OPS} "
+         f"operations, {SHA256_BYTES} bytes; {INT_OPS_PER_S:.4g} "
+         "operations/s, 3.35 TB/s")
+
+    entries = {}
+    for name, (kernel, plain) in fns.items():
+        replaces, bound = HASH_KERNELS[name]
+        times, plain_times, bounds = {}, {}, {}
+        for bits in (10, 16, 20, 22):
+            args = inputs(name, 1 << bits, 64 + bits)
+            times[bits] = _time_ms(lambda: kernel(*args))
+            plain_times[bits] = _time_ms(lambda: plain(*args), reps=2)
+            bounds[bits] = bound(1 << bits)
+            _log(f"{name} 2^{bits} instances: kernel {times[bits]:.4f} ms "
+                 f"({100 * bounds[bits][0] / times[bits]:.1f} % of bound), "
+                 f"plain {plain_times[bits]:.3f} ms; bound "
+                 f"{bounds[bits][0]:.4f} ms ({bounds[bits][1]})")
+            del args
+        entries[name] = {
+            "name": f"hash_{name}", "route": "cuda",
+            "source": "zkevm_prover_tpu_torch/csrc/hash.cu",
+            "replaces": replaces, "max_abs_err": 0, "ms": times[22],
+            "plain_ms": plain_times[22], "bound_ms": bounds[22][0],
+            "bound_by": bounds[22][1], "library_ms": None,
+            "ms_by_log2_size": times, "plain_ms_by_log2_size": plain_times}
+    torch.cuda.empty_cache()
+    return entries
+
+
 def small_proofs(device: str) -> dict:
     """Proof JSON of the toy AIRs, PoseidonG at 2^8, the mixed batch of
-    the seven co-processor SMs at 2^9 and the small storage batch (storage
-    2^9 with its emitted PoseidonG 2^9 and ClimbKey 2^10), proved on
+    the seven co-processor SMs at 2^9, the small storage batch (storage
+    2^9 with its emitted PoseidonG 2^9 and ClimbKey 2^10) and the small
+    hash batch (PaddingKK, PaddingSha256, KeccakF, Sha256F), proved on
     `device`; each card proof must also verify."""
     from zkevm_prover_tpu_torch.executor import BatchActions, Executor
-    from zkevm_prover_tpu_torch.executor.examples import (mixed_batch,
-                                                          small_storage_batch)
+    from zkevm_prover_tpu_torch.executor.examples import (
+        mixed_batch, small_hash_batch, small_storage_batch)
     from zkevm_prover_tpu_torch.stark import examples
     from zkevm_prover_tpu_torch.stark.prover import StarkProver
     from zkevm_prover_tpu_torch.stark.setup import StarkSetup
@@ -396,6 +544,15 @@ def small_proofs(device: str) -> dict:
         _fail("the small storage batch does not verify")
     for name, (prover, proof) in proofs.items():
         out[f"storage batch {name} 2^{prover.setup.n_bits}"] = proof.to_json()
+    batch = small_hash_batch()
+    ex = batch.executor(device)
+    traces = ex.execute(batch.actions())
+    traces.update(ex.execute_gates())
+    proofs = ex.prove_traces(traces)
+    if device == "cuda" and not ex.verify_all(proofs):
+        _fail("the small hash batch does not verify")
+    for name, (prover, proof) in proofs.items():
+        out[f"hash batch {name} 2^{prover.setup.n_bits}"] = proof.to_json()
     return out
 
 
@@ -418,7 +575,7 @@ def check_small_proofs(child, path: str) -> None:
         _fail(f"the CPU proofs' process exited with {child.returncode}")
     with open(path) as f:
         cpu = json.load(f)
-    if sorted(cpu) != sorted(card) or len(card) != 4 + 1 + 7 + 3:
+    if sorted(cpu) != sorted(card) or len(card) != 4 + 1 + 7 + 3 + 4:
         _fail(f"proved {sorted(card)} on the card, {sorted(cpu)} on the CPU")
     for name, text in card.items():
         if text != cpu[name]:
@@ -739,6 +896,115 @@ def run_storage_batch(torch, pcu, smt, tree, bits: int) -> dict:
     return launches
 
 
+def run_hash_batch(torch, pcu, hcu) -> dict:
+    """The hash batch at full width (`examples.hash_batch`): the padding SMs
+    through `Executor.execute`, the gate SMs through `execute_gates` from
+    their emitted permutations, each proved and timed; then `verify_all`, a
+    tampered proof of each SM rejected, and the single-block messages'
+    PaddingKK digests against `keccak256_blocks` on the card. Returns the
+    launches of every kernel on this path (counters zeroed just before)."""
+    from zkevm_prover_tpu_torch.executor import examples
+    from zkevm_prover_tpu_torch.ops import keccak
+    from zkevm_prover_tpu_torch.stark.proof import StarkProof
+    from zkevm_prover_tpu_torch.stark.verifier import VerifyError, verify
+
+    batch = examples.hash_batch()
+    ex = batch.executor("cuda")
+    counts = ex.counters(batch.actions())
+    _log(f"hash batch: {len(batch.keccak)} Keccak messages in "
+         f"{counts['padding_kk']} blocks (KeccakF capacity "
+         f"{ex.gate_capacity('keccak_f')}), {len(batch.sha256)} SHA-256 "
+         f"messages in {counts['padding_sha256']} blocks (Sha256F capacity "
+         f"{ex.gate_capacity('sha256_f')}); sizes (log2 rows) "
+         f"{json.dumps(batch.n_bits)}; gates {json.dumps(batch.gates)}")
+    pcu.MODE = "mxu96"
+    for counters in (pcu.launches, hcu.launches):
+        for k in counters:
+            counters[k] = 0
+    t_batch = time.perf_counter()
+    traces = ex.execute(batch.actions())
+    traces.update(ex.execute_gates())
+    torch.cuda.synchronize()
+    _log(f"hash batch executors: {time.perf_counter() - t_batch:.2f} s; "
+         + json.dumps({k: round(v, 3) for k, v in ex.execute_times.items()})
+         + f"; sha256_compress launches {hcu.launches['sha256_compress']}")
+    proofs, peak = {}, 0.0
+    for name, trace in traces.items():
+        t0 = time.perf_counter()
+        prover = ex.prover(name)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        proof = prover.prove(trace)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        gib = torch.cuda.max_memory_allocated() / 2**30
+        peak = max(peak, gib)
+        proofs[name] = (prover, proof)
+        air = prover.setup.air
+        _log(f"hash batch {name} 2^{ex.n_bits[name]} ({air.n_cm1} committed"
+             f" / {len(air.const_names)} constant cols, {len(air.lookups)} "
+             f"lookups, {len(air.connections)} connections): AIR (host) "
+             f"{ex.air_times[name]:.2f} s, setup "
+             f"{t1 - t0 - ex.air_times[name]:.2f} s, executor "
+             f"{ex.execute_times[name]:.2f} s, prove {t2 - t1:.2f} s "
+             f"({prover.setup.n / (t2 - t1) / 1e6:.4f} Mrow/s), peak device "
+             f"memory {gib:.2f} GiB")
+        _log(f"hash batch {name} phases (s): " + json.dumps(
+            {k: round(v, 4) for k, v in prover.phase_times.items()}))
+    _log(f"hash batch: {time.perf_counter() - t_batch:.1f} s in all; peak "
+         f"device memory {peak:.2f} GiB")
+
+    t0 = time.perf_counter()
+    if not ex.verify_all(proofs):
+        _fail("verify_all rejected the hash batch")
+    torch.cuda.synchronize()
+    _log(f"hash batch verify_all: true ({time.perf_counter() - t0:.2f} s)")
+    # PaddingKK's digests (the host sponge) of the single-block messages
+    # against keccak256_blocks of them on the card (the keccak_f kernel);
+    # the messages' addresses follow their order, so digest i is message i
+    single = [i for i, m in enumerate(batch.keccak)
+              if len(m["data"]) < keccak.RATE_BYTES]
+    blocks = np.zeros((len(single), keccak.RATE_BYTES), dtype=np.uint8)
+    for row, i in enumerate(single):
+        data = batch.keccak[i]["data"]
+        blocks[row, :len(data)] = bytearray(data)
+        blocks[row, len(data)] ^= 0x01
+        blocks[row, -1] ^= 0x80
+    got = keccak.keccak256_blocks(blocks, device="cuda").cpu().numpy()
+    for row, i in enumerate(single):
+        if int.from_bytes(bytes(got[row]), "big") != \
+                ex.digests["padding_kk"][i]:
+            _fail(f"keccak256_blocks of message {i} != its PaddingKK digest")
+    torch.cuda.synchronize()
+    launches = {**pcu.launches, **hcu.launches}
+    _log(f"hash batch: PaddingKK digests of the {len(single)} single-block "
+         "messages == keccak256_blocks on the card; kernel launches in "
+         f"proofs + verify + digests {json.dumps(launches)}")
+    for kernel in ("merkle", "mxu96", "keccak_f", "sha256_compress"):
+        if launches[kernel] == 0:
+            _fail(f"hash batch: the {kernel} kernel was not launched")
+    if launches["sha256_compress"] != counts["padding_sha256_capacity"]:
+        _fail(f"hash batch: {launches['sha256_compress']} sha256_compress "
+              f"launches, not one per PaddingSha256 block "
+              f"({counts['padding_sha256_capacity']})")
+    if any(launches[mode] for mode in pcu.MODES if mode != "mxu96"):
+        _fail(f"hash batch: another mode's kernel ran: {launches}")
+    for name, (prover, proof) in proofs.items():
+        bad = StarkProof.from_json(proof.to_json())
+        bad.fri[0].queries[0][0].values[0] += 1
+        try:
+            verify(prover.setup, prover.verkey, bad, device="cuda")
+        except VerifyError:
+            continue
+        _fail(f"a tampered {name} proof verified")
+    _log(f"hash batch: a tampered proof of each of the {len(proofs)} SMs "
+         "rejected")
+    del traces, proofs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--bits", type=int, default=20,
@@ -775,6 +1041,7 @@ def main() -> int:
 def run(args, torch, child, cpu_path) -> int:
     from zkevm_prover_tpu_torch import cuda_build
     from zkevm_prover_tpu_torch.ops import goldilocks as gl
+    from zkevm_prover_tpu_torch.ops import hash_cuda as hcu
     from zkevm_prover_tpu_torch.ops import poseidon_cuda as pcu
     from zkevm_prover_tpu_torch.ops import poseidon_gl as pg
 
@@ -792,18 +1059,20 @@ def run(args, torch, child, cpu_path) -> int:
 
     entries = check_poseidon(torch, gl, pg, pcu)
     entries["merkle"] = check_merkle(torch, gl, pcu)
+    entries.update(check_hash(torch, gl))
     check_ntt(torch, gl)
-    check_small_proofs(child, cpu_path)
     smt, tree, tree_launches = run_state_tree(torch, pcu, TREE_BITS)
     storage_launches = run_storage_batch(torch, pcu, smt, tree, args.bits)
     del smt, tree
+    hash_launches = run_hash_batch(torch, pcu, hcu)
+    check_small_proofs(child, cpu_path)
     batch, main_launches = run_batch(torch, pcu, args.bits, args.arith_bits)
     # each main path read with the counters zeroed just before it
     paths = {"coprocessor_batch": main_launches, "state_tree": tree_launches,
-             "storage_batch": storage_launches}
-    for kernel in ("mxu96", "merkle"):
+             "storage_batch": storage_launches, "hash_batch": hash_launches}
+    for kernel in ("mxu96", "merkle", "keccak_f", "sha256_compress"):
         entries[kernel]["launches_by_path"] = {
-            path: counts[kernel] for path, counts in paths.items()}
+            path: counts.get(kernel, 0) for path, counts in paths.items()}
         entries[kernel]["launches"] = sum(
             entries[kernel]["launches_by_path"].values())
     trace, prover, proof = batch["mem_align"]
@@ -816,7 +1085,8 @@ def run(args, torch, child, cpu_path) -> int:
     _log("chip_smoke: done")
     print(json.dumps({"kernels": [entries[m] for m in
                                   ("mxu96", "merkle", "mxu24", "mxu",
-                                   "blocked", "1d", "2d")]}))
+                                   "blocked", "1d", "2d", "keccak_f",
+                                   "sha256_compress")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,10 @@ that has only PyTorch:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Each mode's kernel is held bit for bit against the plain torch permutation,
-the fused Merkle commit against the chunked plain tree, and proofs made on
-the card against the port's CPU proofs (which the other test_torch_* files
-hold against the JAX package)."""
+the fused Merkle commit against the chunked plain tree, the Keccak-f and
+SHA-256 kernels against their plain twins and the host oracles, and proofs
+made on the card against the port's CPU proofs (which the other
+test_torch_* files hold against the JAX package)."""
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 
 from zkevm_prover_tpu_torch.executor import BatchActions, Executor
 from zkevm_prover_tpu_torch.ops import goldilocks as gl
+from zkevm_prover_tpu_torch.ops import hash_cuda, keccak, sha256
 from zkevm_prover_tpu_torch.ops import merkle
 from zkevm_prover_tpu_torch.ops import poseidon_constants as pc
 from zkevm_prover_tpu_torch.ops import poseidon_cuda
@@ -278,3 +280,102 @@ def test_page_store_builds_into_the_build_directory(card, tmp_path):
     ps.set(bytes(range(32)), b"value")
     assert ps.get(bytes(range(32))) == b"value"
     ps.close()
+
+
+# batches: 1, a part-filled first block, a whole block of 128 threads, one
+# past it, and ragged sizes over many blocks
+HASH_SIZES = [1, 31, 128, 129, 515, (1 << 16) + 3]
+
+
+@pytest.mark.parametrize("h", HASH_SIZES)
+def test_keccak_kernel_matches_plain(card, h):
+    states = np.random.default_rng(h).integers(0, 1 << 64, (h, 25),
+                                               dtype=np.uint64)
+    x = gl.from_u64(states, card)
+    before = dict(hash_cuda.launches)
+    out = keccak.keccak_f(x)
+    assert hash_cuda.launches["keccak_f"] == before["keccak_f"] + 1
+    assert hash_cuda.launches["sha256_compress"] == before["sha256_compress"]
+    assert out.shape == x.shape and out.is_contiguous()
+    assert torch.equal(out, keccak.keccak_f_plain(x))
+
+
+@pytest.mark.parametrize("h", HASH_SIZES)
+def test_sha256_kernel_matches_plain(card, h):
+    rng = np.random.default_rng(h)
+    state = gl.from_u64(rng.integers(0, 1 << 32, (h, 8), dtype=np.uint64),
+                        card)
+    words = gl.from_u64(rng.integers(0, 1 << 32, (h, 16), dtype=np.uint64),
+                        card)
+    before = dict(hash_cuda.launches)
+    out = sha256.sha256_compress(state, words)
+    assert hash_cuda.launches["sha256_compress"] == \
+        before["sha256_compress"] + 1
+    assert hash_cuda.launches["keccak_f"] == before["keccak_f"]
+    want = sha256.sha256_compress_plain(state, words)
+    assert torch.equal(out, want)
+    # the kernel reads the low 32 bits of each word, as the plain twin
+    assert torch.equal(sha256.sha256_compress(state, words | (7 << 40)),
+                       want)
+
+
+def test_hash_kernels_match_host_oracles(card):
+    import hashlib
+
+    states = np.random.default_rng(7).integers(0, 1 << 64, (64, 25),
+                                               dtype=np.uint64)
+    out = gl.to_u64(keccak.keccak_f(gl.from_u64(states, card)))
+    for row, got in zip(states, out):
+        assert [int(v) for v in got] == keccak._keccak_f_host(
+            [int(v) for v in row])
+    rng = np.random.default_rng(8)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 56, 64)]
+    blocks = np.zeros((len(msgs), 64), dtype=np.uint8)
+    for i, m in enumerate(msgs):
+        blocks[i, :len(m)] = bytearray(m)
+        blocks[i, len(m)] = 0x80
+        blocks[i, 56:] = np.frombuffer((8 * len(m)).to_bytes(8, "big"),
+                                       dtype=np.uint8)
+    digests = sha256.sha256_blocks(blocks, device=card).cpu().numpy()
+    for m, d in zip(msgs, digests):
+        assert bytes(d) == hashlib.sha256(m).digest()
+
+
+def test_hash_kernels_reject_what_they_do_not_take(card):
+    before = dict(hash_cuda.launches)
+    x = torch.zeros((4, 25), dtype=torch.int64, device=card)
+    with pytest.raises(TypeError):
+        hash_cuda.keccak_f(x.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        hash_cuda.keccak_f(torch.zeros((25, 4), dtype=torch.int64,
+                                       device=card).T)
+    with pytest.raises(ValueError, match="one card"):
+        hash_cuda.sha256_compress(
+            torch.zeros((4, 8), dtype=torch.int64, device=card),
+            torch.zeros((3, 16), dtype=torch.int64, device=card))
+    assert hash_cuda.launches == before
+    empty = torch.zeros((0, 25), dtype=torch.int64, device=card)
+    assert hash_cuda.keccak_f(empty).shape == (0, 25)
+    assert hash_cuda.launches == before
+
+
+def test_small_hash_batch_card_proof_matches_cpu(card):
+    from zkevm_prover_tpu_torch.executor import examples as batches
+
+    jsons = {}
+    for dev in (card, "cpu"):
+        batch = batches.small_hash_batch()
+        ex = batch.executor(dev)
+        before = hash_cuda.launches["sha256_compress"]
+        traces = ex.execute(batch.actions())
+        traces.update(ex.execute_gates())
+        if dev == card:
+            # one compression launch per active PaddingSha256 block
+            assert hash_cuda.launches["sha256_compress"] - before == \
+                ex.counters(batch.actions())["padding_sha256_capacity"]
+        proofs = ex.prove_traces(traces)
+        if dev == card:
+            assert ex.verify_all(proofs)
+        jsons[str(dev)] = {name: proof.to_json()
+                           for name, (_, proof) in proofs.items()}
+    assert jsons["cuda"] == jsons["cpu"]

@@ -12,6 +12,11 @@ guess. Both return keyword arguments of `BatchActions`.
 Merkle tree of random keys, hashed level by level in batches through the
 Poseidon kernel; `storage_batch` draws a chained stream of storage actions
 over it, closed on the PoseidonG counter.
+
+`hash_batch` is the hash machines' batch at full width (Keccak and SHA-256
+messages closed on the KeccakF and Sha256F capacities), `small_hash_batch`
+its reduced twin on the JAX package's test messages; both run through an
+`Executor` made by `HashBatch.executor`.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from ..hashdb.smt import ZERO4, fea8_to_scalar
 from ..ops import goldilocks as gl
 from ..ops import poseidon_gl
 from .executor import BatchActions
-from .sm import arith, binary, climb_key, storage
+from .sm import (arith, binary, climb_key, keccak_circuit, padding_kk,
+                 padding_sha256, sha256_circuit, storage)
 
 P = 0xFFFFFFFF00000001
 # secp256k1 generator G and 2G
@@ -365,3 +371,123 @@ def small_storage_batch(device=None) -> tuple:
         BatchActions())["poseidon_g_capacity"] - 1
     actions, _ = storage_batch(Smt(db), tree.root, 7, cap)
     return db, actions
+
+
+# ---------------------------------------------------------------------------
+# the hash machines: Keccak and SHA-256 messages through the padding SMs and
+# the gate SMs they feed
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HashBatch:
+    """Keccak and SHA-256 messages ([{"data": bytes}], the `keccak` and
+    `sha256` fields of `BatchActions`), the log2 rows of each SM and the
+    gate SMs' circuits ({"rounds", "pack", "limb_bits"})."""
+
+    keccak: list
+    sha256: list
+    n_bits: dict
+    gates: dict
+
+    def actions(self) -> BatchActions:
+        return BatchActions(keccak=list(self.keccak), sha256=list(self.sha256))
+
+    def executor(self, device=None):
+        from .executor import Executor
+
+        return Executor(n_bits=self.n_bits, gates=self.gates, device=device)
+
+
+def _pad_bits(blocks: int, block_bytes: int) -> int:
+    """The smallest log2 rows of a padding SM that hold `blocks` blocks."""
+    bits = 1
+    while (1 << bits) // block_bytes < blocks:
+        bits += 1
+    return bits
+
+
+# the Keccak message mix of `hash_batch`: (share, least, most bytes)
+KECCAK_MIX = ((0.55, 64, 64),        # mapping-slot keys
+              (0.15, 32, 32),
+              (0.20, 100, 300),      # transaction RLP
+              (0.08, 300, 1000),
+              (0.02, 1024, 8192))    # code hashing
+
+
+def _close(rng, draw, blocks_of, capacity: int) -> list:
+    """Messages from `draw(rng)` while their blocks fit `capacity`: the
+    batch closes on the first one that does not, as the reference closes a
+    batch on its scarcest counter."""
+    msgs, used = [], 0
+    while True:
+        data = draw(rng)
+        if used + blocks_of(data) > capacity:
+            return msgs
+        used += blocks_of(data)
+        msgs.append({"data": data})
+
+
+def hash_batch(keccak_seed: int = 30, sha256_seed: int = 31) -> HashBatch:
+    """The hash machines at full width, their reference parameters cut to
+    one card. KeccakF: the 24-round circuit, pack 40 on 10-bit limbs (4
+    limbs, 12 committed columns as production's 44 on 11 bits), at 2^21,
+    the smallest domain that holds its 2·2^20-row gate table: 13 slots,
+    520 permutations. Sha256F: the 64-round circuit at production's pack
+    40 and 10-bit limbs, at 2^22, the smallest domain that holds its
+    3·2^20-row table: 33 slots, 1,320 compressions. The messages
+    (synthetic, random bytes) close on those capacities: Keccak from
+    default_rng(keccak_seed) in the `KECCAK_MIX` of lengths, SHA-256 (the
+    0x02 precompile) from default_rng(sha256_seed), 32-512 bytes uniform.
+    The padding SMs get the smallest power of two that holds their
+    blocks."""
+    gates = {"keccak_f": {"rounds": 24, "pack": 40, "limb_bits": 10},
+             "sha256_f": {"rounds": 64, "pack": 40, "limb_bits": 10}}
+    n_bits = {"keccak_f": 21, "sha256_f": 22}
+    cap = {"keccak_f": (1 << 21) // keccak_circuit.build(24).n_rows * 40,
+           "sha256_f": (1 << 22) // sha256_circuit.build(64).n_rows * 40}
+    shares = np.cumsum([m[0] for m in KECCAK_MIX])
+
+    def keccak_message(rng):
+        _, lo, hi = KECCAK_MIX[int(np.searchsorted(shares, rng.random(),
+                                                   side="right"))]
+        return rng.bytes(int(rng.integers(lo, hi + 1)))
+
+    def sha256_message(rng):
+        return rng.bytes(int(rng.integers(32, 513)))
+
+    keccak = _close(np.random.default_rng(keccak_seed), keccak_message,
+                    padding_kk.message_blocks, cap["keccak_f"])
+    sha = _close(np.random.default_rng(sha256_seed), sha256_message,
+                 padding_sha256.message_blocks, cap["sha256_f"])
+    n_bits["padding_kk"] = _pad_bits(
+        sum(padding_kk.message_blocks(m["data"]) for m in keccak),
+        padding_kk.BLOCK)
+    n_bits["padding_sha256"] = _pad_bits(
+        sum(padding_sha256.message_blocks(m["data"]) for m in sha),
+        padding_sha256.BLOCK)
+    return HashBatch(keccak, sha, n_bits, gates)
+
+
+def small_hash_batch() -> HashBatch:
+    """The reduced hash batch of the CPU tests and of the card's small
+    proofs: the JAX package's test messages (tests/test_padding_kk_sm.py,
+    tests/test_sha256_sm.py) through PaddingKK at 2^10 and PaddingSha256 at
+    2^9 (the smallest that hold their 5 and 6 blocks), KeccakF with 1 round
+    at 2^13 and Sha256F with 1 round at 2^12 (one slot each), both pack 4
+    on 2-bit limbs as the JAX tests run them: each gate SM takes the first
+    4 message blocks, its capacity."""
+    keccak = [{"data": b"hello keccak padding"},
+              {"data": bytes(range(200))},      # spans two blocks
+              {"data": b""},                    # empty message
+              {"data": bytes([7] * 135)}]       # 0x81 coincident pad byte
+    sha = [{"data": b"hello sha"},
+           {"data": bytes(range(100))},         # pad spills into a second block
+           {"data": b""},
+           {"data": bytes([5] * 56)}]           # suffix forces an extra block
+    return HashBatch(
+        keccak, sha,
+        n_bits={"padding_kk": 10, "padding_sha256": 9, "keccak_f": 13,
+                "sha256_f": 12},
+        gates={"keccak_f": {"rounds": 1, "pack": 4, "limb_bits": 2},
+               "sha256_f": {"rounds": 1, "pack": 4, "limb_bits": 2}})

@@ -3,7 +3,8 @@ prove each one with its own eSTARK.
 
 Counterpart of `zkevm_prover_tpu/executor/executor.py` (reference:
 src/executor/executor.cpp:487-610). Only the SMs in `_SM_MODULES` are ported
-so far; keccak, sha256 and hashp actions raise NotImplementedError.
+so far; hashp actions raise NotImplementedError (the JAX package's Executor
+drops them: they are proved only inside the combined AIR).
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from .. import resolve_device
 from ..stark.prover import StarkProver
 from ..stark.setup import StarkSetup
 from ..stark.verifier import verify
-from .sm import (arith, binary, climb_key, mem_align, memory, padding_pg,
-                 poseidon_g, storage)
+from .sm import (arith, binary, climb_key, keccak_circuit, keccak_f,
+                 mem_align, memory, padding_kk, padding_pg, padding_sha256,
+                 poseidon_g, sha256_circuit, sha256_f, storage)
 
 
 @dataclasses.dataclass
@@ -40,24 +42,42 @@ class BatchActions:
 
 
 # in execution order: storage first, since it emits poseidon_g and climb_key
-# actions
-_SM_MODULES = {"storage": storage, "binary": binary, "memory": memory,
-               "arith": arith, "mem_align": mem_align,
+# actions; then the padding SMs, as in the JAX package
+_SM_MODULES = {"storage": storage, "padding_kk": padding_kk,
+               "padding_sha256": padding_sha256, "binary": binary,
+               "memory": memory, "arith": arith, "mem_align": mem_align,
                "poseidon_g": poseidon_g, "padding_pg": padding_pg,
                "climb_key": climb_key}
+
+# the BatchActions field each SM takes, where it is not the SM's name
+_ACTION_FIELD = {"padding_kk": "keccak", "padding_sha256": "sha256"}
+
+# the gate SM each padding SM emits its permutation inputs for
+_GATE_SM = {"padding_kk": "keccak_f", "padding_sha256": "sha256_f"}
+
+# each gate SM's module and the function that builds its circuit
+_GATES = {"keccak_f": (keccak_f, keccak_circuit.build),
+          "sha256_f": (sha256_f, sha256_circuit.build)}
 
 # per-SM trace degree (the JAX package's defaults for the ported SMs); binary's
 # nibble-semantics table needs 2816 rows
 DEFAULT_BITS = {"binary": 13, "memory": 9, "arith": 9, "mem_align": 9,
                 "poseidon_g": 9, "padding_pg": 9, "climb_key": 10,
-                "storage": 9}
+                "storage": 9, "padding_kk": 11, "padding_sha256": 11}
 
 
 class Executor:
-    """Owns one AIR/setup/prover per SM (built lazily), all on `device`."""
+    """Owns one AIR/setup/prover per SM (built lazily), all on `device`.
+
+    `gates` configures the gate SMs that prove the padding SMs' emitted
+    permutations ({"keccak_f" or "sha256_f": {"rounds", "pack",
+    "limb_bits"}}, each with its log2 rows in `n_bits`): `execute_gates`
+    fills their traces, and `prove_traces` and `verify_all` take them like
+    any other SM. The JAX package's Executor has no gate SMs: it proves
+    them in the combined AIR."""
 
     def __init__(self, n_bits: int | dict | None = None, n_queries: int = 8,
-                 device=None):
+                 device=None, gates: dict | None = None):
         if n_bits is None:
             self.n_bits = dict(DEFAULT_BITS)
         elif isinstance(n_bits, int):
@@ -66,8 +86,14 @@ class Executor:
             self.n_bits = {**DEFAULT_BITS, **n_bits}
         self.n_queries = n_queries
         self.device = resolve_device(device)
+        self.gates = dict(gates or {})
         self._provers: dict[str, StarkProver] = {}
+        self._circuits: dict[str, object] = {}
         self.execute_times: dict[str, float] = {}
+        self.air_times: dict[str, float] = {}
+        self.emitted: dict[str, list] = {}
+        self.digests: dict[str, list] = {}
+        self._message_blocks: dict[str, int] = {}
 
     def binary_slice_bits(self) -> int:
         """Largest slice width whose semantics table fits the binary domain
@@ -78,13 +104,33 @@ class Executor:
             s += 1
         return s
 
-    def _prover(self, name: str) -> StarkProver:
+    def circuit(self, gate: str):
+        """The gate circuit of a configured gate SM (built once)."""
+        if gate not in self._circuits:
+            self._circuits[gate] = _GATES[gate][1](self.gates[gate]["rounds"])
+        return self._circuits[gate]
+
+    def gate_capacity(self, gate: str) -> int:
+        """Permutations a configured gate SM holds: pack per slot."""
+        slots = (1 << self.n_bits[gate]) // self.circuit(gate).n_rows
+        return slots * self.gates[gate]["pack"]
+
+    def prover(self, name: str) -> StarkProver:
+        """The SM's prover, its AIR and setup built at first use (the AIR's
+        host seconds in `air_times`)."""
         if name not in self._provers:
+            t0 = time.perf_counter()
             if name == "binary":
                 air = binary.build_air(self.n_bits[name],
                                        self.binary_slice_bits())
+            elif name in self.gates:
+                cfg = self.gates[name]
+                air = _GATES[name][0].build_air(
+                    self.n_bits[name], self.circuit(name), cfg["pack"],
+                    cfg["limb_bits"])
             else:
                 air = _SM_MODULES[name].build_air(self.n_bits[name])
+            self.air_times[name] = time.perf_counter() - t0
             setup = StarkSetup(air, n_queries=self.n_queries, fri_fold_bits=2)
             self._provers[name] = StarkProver(setup, device=self.device)
         return self._provers[name]
@@ -97,19 +143,25 @@ class Executor:
         ClimbKey requests that join the batch before those SMs fill their
         traces (the reference's Storage→ClimbKey / →PoseidonG dependency
         joins, executor.cpp:648-701). `db` is the hashdb database holding
-        the trees the storage actions walk. `execute_times` holds the
-        seconds of each SM's witness in the last call."""
+        the trees the storage actions walk. Of the last call,
+        `execute_times` holds the seconds of each SM's witness, `emitted`
+        the gate-SM inputs the padding SMs emit ("keccak_f": Keccak-f
+        inputs, "sha256_f": compressions, one per active block; as in the
+        JAX package they are proved apart, by `keccak_f` and `sha256_f` at
+        their own domains) and `digests` the padding SMs' message digests.
+        """
+        ported = {_ACTION_FIELD.get(name, name) for name in _SM_MODULES}
         for field in dataclasses.fields(actions):
-            if field.name not in _SM_MODULES and getattr(actions, field.name):
+            if field.name not in ported and getattr(actions, field.name):
                 raise NotImplementedError(
                     f"{field.name} actions: that state machine is not ported")
         if actions.storage and db is None:
             raise ValueError("storage actions require the hashdb database "
                              "(pass db=smt.db)")
         out = {}
-        self.execute_times = {}
+        self.execute_times, self.emitted, self.digests = {}, {}, {}
         for name, mod in _SM_MODULES.items():   # storage first
-            acts = getattr(actions, name)
+            acts = getattr(actions, _ACTION_FIELD.get(name, name))
             if not acts:
                 continue
             t0 = time.perf_counter()
@@ -118,6 +170,14 @@ class Executor:
                                                      db)
                 actions.poseidon_g = actions.poseidon_g + emitted["poseidon_g"]
                 actions.climb_key = actions.climb_key + emitted["climb_key"]
+            elif name in _GATE_SM:
+                kw = {"device": self.device} if name == "padding_sha256" \
+                    else {}
+                out[name], self.emitted[_GATE_SM[name]], \
+                    self.digests[name] = mod.execute(acts, self.n_bits[name],
+                                                     **kw)
+                self._message_blocks[_GATE_SM[name]] = sum(
+                    mod.message_blocks(a["data"]) for a in acts)
             elif name == "binary":
                 out[name] = binary.execute(acts, self.n_bits[name],
                                            self.binary_slice_bits())
@@ -125,6 +185,24 @@ class Executor:
                 res = mod.execute(acts, self.n_bits[name])
                 out[name] = res[0] if isinstance(res, tuple) else res
             self.execute_times[name] = time.perf_counter() - t0
+        return out
+
+    def execute_gates(self) -> dict[str, np.ndarray]:
+        """Traces of the configured gate SMs from the permutation inputs the
+        padding SMs emitted in the last `execute`: the blocks of the
+        messages (not the filler blocks after them), up to the gate SM's
+        capacity. `execute_times` gains each one's seconds."""
+        out = {}
+        for gate in self.gates:
+            if gate not in self.emitted:
+                continue
+            t0 = time.perf_counter()
+            used = min(self._message_blocks[gate], self.gate_capacity(gate))
+            cfg = self.gates[gate]
+            out[gate] = _GATES[gate][0].execute(
+                self.emitted[gate][:used], self.n_bits[gate],
+                self.circuit(gate), cfg["pack"], cfg["limb_bits"])
+            self.execute_times[gate] = time.perf_counter() - t0
         return out
 
     def counters(self, actions: BatchActions) -> dict[str, int]:
@@ -148,6 +226,14 @@ class Executor:
             "climb_key": len(actions.climb_key),
             "climb_key_capacity": (1 << nb["climb_key"])
             // (64 // climb_key.params_for(nb["climb_key"])[0]),
+            # padding blocks the messages take (their data and the pad)
+            "padding_kk": sum(padding_kk.message_blocks(a["data"])
+                              for a in actions.keccak),
+            "padding_kk_capacity": (1 << nb["padding_kk"]) // padding_kk.BLOCK,
+            "padding_sha256": sum(padding_sha256.message_blocks(a["data"])
+                                  for a in actions.sha256),
+            "padding_sha256_capacity": (1 << nb["padding_sha256"])
+            // padding_sha256.BLOCK,
         }
 
     def prove_all(self, actions: BatchActions,
@@ -158,7 +244,7 @@ class Executor:
     def prove_traces(self, traces: dict[str, np.ndarray]) -> dict[str, object]:
         """Prove pre-computed commit pols (the resume half of the
         commit-pols checkpoint)."""
-        return {name: (self._prover(name), self._prover(name).prove(tr))
+        return {name: (self.prover(name), self.prover(name).prove(tr))
                 for name, tr in traces.items()}
 
     def verify_all(self, proofs: dict) -> bool:

@@ -38,7 +38,9 @@ Phases (any failure exits nonzero; no phase catches and continues):
     card, its permutations through the mxu96 kernel (counters zeroed just
     before, read just after: one launch per hash batch), host and device
     seconds, nodes, depth, and `Smt.get` of 64 present keys and 16 absent
-    ones;
+    ones. The keys are those the Main SM derives from random key registers
+    (two of the hash batches), so that phase 5b's ROM reads and writes
+    them;
  4c. the storage batch at full width over that tree:
     `executor.examples.storage_batch` closed on PoseidonG's capacity at
     2^`--bits`, proved through `Executor.prove_all(actions, db=smt.db)`
@@ -68,7 +70,30 @@ Phases (any failure exits nonzero; no phase catches and continues):
     its emitted PoseidonG 2^9 and ClimbKey 2^10,
     `executor.examples.small_storage_batch`) and the small hash batch
     (`executor.examples.small_hash_batch`);
- 5. the main path: the co-processor batch at full width under
+ 4f. among those small proofs, the combined batch AIR of
+    `executor.examples.small_rom_batch` (Main and the seven co-SMs that
+    `combined.default_include(9)` binds, 2^9): `combined.execute_batch`,
+    `build_batch_air`, one proof, card bytes == CPU bytes, and it
+    verifies on the card;
+ 5b. the combined batch at full width: `executor.examples.rom_batch` at
+    2^`ROM_BITS` (17) over the 2^20-key tree, its ROM at the fork-9
+    e2e vector's per-step op rates, closed on the scarcest bound SM;
+    `combined.execute_batch` (host seconds of Main and each co-SM),
+    `build_batch_air(rom, 17, include=default_include(17))` (695
+    committed columns: Main and the eight bound co-SMs), `StarkSetup`,
+    one `StarkProver.prove` (its phases, peak device memory) and
+    `verify`; each SM's fill and the counter that closed the batch; a
+    tampered proof rejected; a cross-SM forgery (a Memory write's value
+    changed where Memory alone stays consistent) flagged by
+    `check_constraints(quick=True)` on the card, in the Main-Memory
+    permutation's constraints and no other; the chaining publics read
+    out of the proof equal the executor's old and new state roots.
+    Counters zeroed just before the prove and read after `verify`: the
+    fused Merkle kernel and mxu96 must have run, and no other mode's
+    kernel. Then a re-prove of it under torch.profiler, as in phase 7,
+    beside its first prove's time;
+ 5. the co-processor batch at 2^`--bits` (19; 2^20 until the combined
+    batch joined, cut to keep the run inside its time limit) under
     `poseidon_cuda.MODE = "mxu96"` — every ported SM filled to its capacity
     less one group (`executor.examples.full_batch`), each executed and
     proved through `Executor.execute` / `prove_traces` (the halves of
@@ -82,14 +107,14 @@ Phases (any failure exits nonzero; no phase catches and continues):
     commits go through the fused Merkle kernel, under every other mode
     through that mode's permutation and never the fused kernel; each proof
     must equal the mxu96 proof byte for byte;
- 7. a steady re-prove of arith (the widest AIR), timed alone and under
-    torch.profiler (device busy time, idle share, the Poseidon kernels'
-    share, the top device ops);
+ 7. a re-prove of arith (the widest AIR) under torch.profiler (device
+    busy time, idle share, the Poseidon kernels' share, the top device
+    ops), beside its phase-5 prove's time, its first;
  8. a kernels line (JSON: each mode's kernel, the fused Merkle kernel and
     the two hash kernels, its launches on the main paths, summed and by
     path (the co-processor batch, the state tree, the storage batch, the
-    hash batch), its time, its bound and its plain version's time) and a
-    final line {"ok": true, "device": {...}}.
+    hash batch, the combined batch), its time, its bound and its plain
+    version's time) and a final line {"ok": true, "device": {...}}.
 
 It needs the CUDA toolkit (nvcc) and one card; without CUDA it exits
 nonzero before printing anything.
@@ -191,6 +216,10 @@ def merkle_bound(h: int, w: int) -> tuple[float, str]:
 # log2 keys of the storage batch's pre-state tree: a state of a million
 # accounts and storage slots
 TREE_BITS = 20
+# log2 rows of the combined batch AIR (phase 5b; reference: 23) and its
+# seed
+ROM_BITS = 17
+ROM_SEED = 23
 
 # artifacts/bench/measure_baseline_r05.json: exact field results
 R05_CHECKSUM = 16096883102802302962   # poseidon, default_rng(1) (2^20, 12)
@@ -505,12 +534,15 @@ def check_hash(torch, gl) -> dict:
 def small_proofs(device: str) -> dict:
     """Proof JSON of the toy AIRs, PoseidonG at 2^8, the mixed batch of
     the seven co-processor SMs at 2^9, the small storage batch (storage
-    2^9 with its emitted PoseidonG 2^9 and ClimbKey 2^10) and the small
-    hash batch (PaddingKK, PaddingSha256, KeccakF, Sha256F), proved on
-    `device`; each card proof must also verify."""
-    from zkevm_prover_tpu_torch.executor import BatchActions, Executor
+    2^9 with its emitted PoseidonG 2^9 and ClimbKey 2^10), the small
+    hash batch (PaddingKK, PaddingSha256, KeccakF, Sha256F) and the small
+    combined batch (Main and its bound co-SMs in one AIR at 2^9), proved
+    on `device`; each card proof must also verify."""
+    from zkevm_prover_tpu_torch.executor import (BatchActions, Executor,
+                                                 combined)
     from zkevm_prover_tpu_torch.executor.examples import (
-        mixed_batch, small_hash_batch, small_storage_batch)
+        mixed_batch, small_hash_batch, small_rom_batch, small_storage_batch)
+    from zkevm_prover_tpu_torch.hashdb import Smt
     from zkevm_prover_tpu_torch.stark import examples
     from zkevm_prover_tpu_torch.stark.prover import StarkProver
     from zkevm_prover_tpu_torch.stark.setup import StarkSetup
@@ -553,6 +585,19 @@ def small_proofs(device: str) -> dict:
         _fail("the small hash batch does not verify")
     for name, (prover, proof) in proofs.items():
         out[f"hash batch {name} 2^{prover.setup.n_bits}"] = proof.to_json()
+    db, _, rom_batch = small_rom_batch(device)
+    _, traces = combined.execute_batch(
+        rom_batch.rom, rom_batch.n_bits, input=rom_batch.input, smt=Smt(db),
+        include=rom_batch.include, device=device)
+    air = combined.build_batch_air(rom_batch.rom, rom_batch.n_bits,
+                                   include=rom_batch.include)
+    setup = StarkSetup(air, n_queries=8, fri_fold_bits=2)
+    prover = StarkProver(setup, device=device)
+    proof = prover.prove(air.stack_traces(traces))
+    if device == "cuda" and not verify(setup, prover.verkey, proof,
+                                       device=device):
+        _fail("the small combined batch does not verify")
+    out[f"rom batch combined 2^{rom_batch.n_bits}"] = proof.to_json()
     return out
 
 
@@ -575,7 +620,7 @@ def check_small_proofs(child, path: str) -> None:
         _fail(f"the CPU proofs' process exited with {child.returncode}")
     with open(path) as f:
         cpu = json.load(f)
-    if sorted(cpu) != sorted(card) or len(card) != 4 + 1 + 7 + 3 + 4:
+    if sorted(cpu) != sorted(card) or len(card) != 4 + 1 + 7 + 3 + 4 + 1:
         _fail(f"proved {sorted(card)} on the card, {sorted(cpu)} on the CPU")
     for name, text in card.items():
         if text != cpu[name]:
@@ -703,17 +748,14 @@ def run_modes(torch, pcu, trace, prover, proof) -> dict:
     return launches
 
 
-def profile_prove(torch, name, prover, trace) -> None:
-    """A steady prove of the trace, timed alone and then under
-    torch.profiler: device busy time, the Poseidon kernels' share of it, the
-    device's idle share of the profiled wall time, and the top device ops."""
+def profile_prove(torch, name, prover, trace, first_s: float) -> None:
+    """A re-prove of the trace under torch.profiler, logged beside its
+    first prove's seconds `first_s`: device busy time, the Poseidon
+    kernels' share of it, the device's idle share of the profiled wall
+    time, and the top device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
-    prover.prove(trace)
-    torch.cuda.synchronize()
-    steady = time.perf_counter() - t0
     # device activity only, summed from the raw events: the prove launches
     # about a million kernels, and key_averages() takes ~0.3 ms per event
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -735,8 +777,8 @@ def profile_prove(torch, name, prover, trace) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     top = [(k.removeprefix("void ").removeprefix("at::native::")[:110], v)
            for k, v in top]
-    _log(f"{name} steady prove: {steady:.3f} s "
-         f"({prover.setup.n / steady / 1e6:.4f} Mrow/s); profiled wall "
+    _log(f"{name} first prove: {first_s:.3f} s "
+         f"({prover.setup.n / first_s / 1e6:.4f} Mrow/s); profiled wall "
          f"{wall:.3f} s, {n_kernels} device events, device busy "
          f"{busy_s:.3f} s (idle share "
          f"{1 - busy_s / wall:.3f}), poseidon kernels {pos_s:.4f} s "
@@ -766,9 +808,11 @@ def run_state_tree(torch, pcu, bits: int):
     """The storage batch's pre-state: `examples.state_tree` at 2^12 keys on
     the card against the CPU's plain twin (the same root), then at 2^`bits`
     keys on the card, its permutations through the mxu96 kernel (one launch
-    per batch: value preimages, leaves, each branch level), timed on the
-    host clock and on the device (torch.profiler), and read back through
-    `Smt.get`. Returns the tree's Smt, the tree and the launches."""
+    per batch: the keys' two, value preimages, leaves, each branch level),
+    timed on the host clock and on the device (torch.profiler), and read
+    back through `Smt.get`. The keys are those the Main SM derives from
+    random key registers. Returns the tree's Smt, the tree and the
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from zkevm_prover_tpu_torch.executor import examples
@@ -791,9 +835,10 @@ def run_state_tree(torch, pcu, bits: int):
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
     launches = dict(pcu.launches)
-    if launches["mxu96"] != tree.depth + 2:
+    if launches["mxu96"] != tree.depth + 4:
         _fail(f"state tree: {launches['mxu96']} mxu96 launches, expected "
-              f"{tree.depth + 2} (values, leaves, {tree.depth} levels)")
+              f"{tree.depth + 4} (the keys' two, values, leaves, "
+              f"{tree.depth} levels)")
     if any(n for mode, n in launches.items() if mode != "mxu96"):
         _fail(f"state tree: another kernel ran: {launches}")
     smt = Smt(db)
@@ -1005,10 +1050,147 @@ def run_hash_batch(torch, pcu, hcu) -> dict:
     return launches
 
 
+def run_rom_batch(torch, pcu, hcu, smt, tree, bits: int):
+    """Phase 5b, the combined batch at full width: `examples.rom_batch` at
+    2^`bits` over the state tree, executed through `combined.execute_batch`
+    and proved in one STARK over `build_batch_air(rom, bits,
+    include=default_include(bits))`, then `verify`; a tampered proof must
+    be rejected, a cross-SM forgery flagged on the card, and the publics
+    must carry the executor's state roots. Returns the prover, the stacked
+    trace, the launches of every kernel in the prove and `verify`, and the
+    prove's seconds."""
+    from zkevm_prover_tpu_torch.executor import combined, examples
+    from zkevm_prover_tpu_torch.executor.sm import main_sm, memory
+    from zkevm_prover_tpu_torch.stark.proof import StarkProof
+    from zkevm_prover_tpu_torch.stark.prover import StarkProver
+    from zkevm_prover_tpu_torch.stark.setup import StarkSetup
+    from zkevm_prover_tpu_torch.stark.verifier import VerifyError, verify
+
+    pcu.MODE = "mxu96"
+    t0 = time.perf_counter()
+    batch = examples.rom_batch(bits, smt, tree, ROM_SEED)
+    gen_s = time.perf_counter() - t0
+    fill = {sm: f"{used} of {cap} ({100 * used / cap:.1f} %)"
+            for sm, (used, cap) in batch.fill.items()}
+    _log(f"rom batch 2^{bits}: a ROM of {len(batch.rom)} lines made in "
+         f"{gen_s:.2f} s (host; its storage ops' Smt.get/set included); ops "
+         f"{json.dumps(batch.ops)}; closed by {batch.closed_by}; fill (used "
+         f"of capacity less one group; main in steps) {json.dumps(fill)}")
+
+    times: dict = {}
+    t0 = time.perf_counter()
+    res, traces = combined.execute_batch(
+        batch.rom, bits, input=batch.input, smt=smt, include=batch.include,
+        device="cuda", times=times)
+    exec_s = time.perf_counter() - t0
+    _log(f"rom batch executors: {exec_s:.2f} s (host); by SM (s) "
+         + json.dumps({k: round(v, 3) for k, v in times.items()})
+         + f"; Main counters {json.dumps(res.counters)}")
+    t0 = time.perf_counter()
+    air = combined.build_batch_air(batch.rom, bits, include=batch.include)
+    air_s = time.perf_counter() - t0
+    shape = (f"{air.n_cm1} committed / {len(air.const_names)} constant "
+             f"cols, {len(air.constraints)} constraints, {len(air.lookups)} "
+             f"lookups, {len(air.permutations)} permutations, "
+             f"{len(air.publics)} publics")
+    t0 = time.perf_counter()
+    setup = StarkSetup(air, n_queries=8, fri_fold_bits=2)
+    prover = StarkProver(setup, device="cuda")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stacked = air.stack_traces(traces)
+    stack_s = time.perf_counter() - t0
+    _log(f"rom batch AIR: include {json.dumps(batch.include)}; {shape}; "
+         f"build_batch_air {air_s:.2f} s, StarkSetup + StarkProver "
+         f"{setup_s:.2f} s, stack_traces {stack_s:.2f} s (host)")
+
+    for counters in (pcu.launches, hcu.launches):
+        for k in counters:
+            counters[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = prover.prove(stacked)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _log(f"rom batch prove 2^{bits}: {prove_s:.2f} s "
+         f"({setup.n / prove_s / 1e6:.4f} Mrow/s); peak device memory "
+         f"{peak:.2f} GiB; kernel launches {json.dumps(pcu.launches)}")
+    _log("rom batch phases (s): " + json.dumps(
+        {k: round(v, 4) for k, v in prover.phase_times.items()}))
+    t0 = time.perf_counter()
+    if not verify(setup, prover.verkey, proof, device="cuda"):
+        _fail("verify rejected the combined batch")
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    launches = {**pcu.launches, **hcu.launches}
+    _log(f"rom batch verify: true ({verify_s:.2f} s); kernel launches in "
+         f"prove + verify {json.dumps(launches)}")
+    if launches["merkle"] == 0 or launches["mxu96"] == 0:
+        _fail(f"rom batch: a kernel of the path did not run: {launches}")
+    if any(launches[mode] for mode in pcu.MODES if mode != "mxu96"):
+        _fail(f"rom batch: another mode's kernel ran: {launches}")
+
+    bad = StarkProof.from_json(proof.to_json())
+    bad.fri[0].queries[0][0].values[0] += 1
+    try:
+        verify(setup, prover.verkey, bad, device="cuda")
+    except VerifyError:
+        pass
+    else:
+        _fail("a tampered combined proof verified")
+
+    # the chaining publics come out of the proof, as Prover reads them
+    pv = [int(x) for x in proof.publics]
+    old_root = main_sm._fea8_to_fe4(pv[0:8])
+    new_root = main_sm._fea8_to_fe4(pv[19:27])
+    if old_root != tree.root or new_root != tuple(res.new_state_root):
+        _fail(f"rom batch publics: old root {old_root}, new root "
+              f"{new_root}; the executor's {tree.root}, "
+              f"{res.new_state_root}")
+    if new_root == tree.root:
+        _fail("rom batch: the batch wrote no storage")
+
+    # cross-SM forgery: a Memory write that no later access reads gets
+    # another value; Memory alone stays consistent, Main still says the old
+    mem = traces["memory"].copy()
+    rows = np.nonzero((mem[:, 3] == 1) & (mem[:, 4] == 1))[0]
+    if len(rows) == 0:
+        _fail("rom batch: no memory write ends its address's run")
+    mem[rows[0], 6] = (int(mem[rows[0], 6]) + 1) & 0xFFFFFFFF
+    t0 = time.perf_counter()
+    mem_prover = StarkProver(StarkSetup(memory.build_air(bits), n_queries=8,
+                                        fri_fold_bits=2), device="cuda")
+    if mem_prover.check_constraints(mem, quick=True) != []:
+        _fail("rom batch: the forged Memory trace is not consistent alone")
+    forged = air.stack_traces({**traces, "memory": mem})
+    flagged = prover.check_constraints(forged, quick=True)
+    # the Main-Memory permutation's two constraints (Z's first row and its
+    # step) follow the AIR's own and two per lookup, as StarkSetup lists them
+    pi = next(i for i, pe in enumerate(air.permutations)
+              if pe.sel_t == air.cm("memory", "MOP"))
+    first = (len(air.constraints) + 2 * len(air.lookups)
+             + sum(len(p.aux) + 2 for p in setup.permutations[:pi]))
+    if not flagged or not set(flagged) <= {first, first + 1}:
+        _fail(f"rom batch: the forged Memory value flagged {flagged}, not "
+              f"the Main-Memory permutation's constraints {first}, "
+              f"{first + 1} alone")
+    _log(f"rom batch: a tampered proof rejected; publics old root "
+         f"{old_root} == the tree's, new root {new_root} == the "
+         f"executor's; a forged Memory value (Memory alone consistent) "
+         f"flagged on the card by check_constraints(quick=True): "
+         f"{flagged}, the Main-Memory permutation's (permutation {pi}) "
+         f"({time.perf_counter() - t0:.2f} s for the two "
+         "checks)")
+    del mem_prover, traces, forged
+    return prover, stacked, launches, prove_s
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bits", type=int, default=20,
-                    help="log2 rows of every SM but arith (reference: 23)")
+    ap.add_argument("--bits", type=int, default=19,
+                    help="log2 rows of every SM but arith in the "
+                         "co-processor and storage batches (reference: 23)")
     ap.add_argument("--arith-bits", type=int, default=19,
                     help="log2 rows of arith (reference: 23)")
     ap.add_argument("--cpu-proofs", metavar="PATH",
@@ -1063,13 +1245,19 @@ def run(args, torch, child, cpu_path) -> int:
     check_ntt(torch, gl)
     smt, tree, tree_launches = run_state_tree(torch, pcu, TREE_BITS)
     storage_launches = run_storage_batch(torch, pcu, smt, tree, args.bits)
-    del smt, tree
     hash_launches = run_hash_batch(torch, pcu, hcu)
     check_small_proofs(child, cpu_path)
+    rom_prover, rom_trace, rom_launches, rom_s = run_rom_batch(
+        torch, pcu, hcu, smt, tree, ROM_BITS)
+    profile_prove(torch, f"combined batch 2^{ROM_BITS}", rom_prover,
+                  rom_trace, rom_s)
+    del smt, tree, rom_prover, rom_trace
+    torch.cuda.empty_cache()
     batch, main_launches = run_batch(torch, pcu, args.bits, args.arith_bits)
     # each main path read with the counters zeroed just before it
     paths = {"coprocessor_batch": main_launches, "state_tree": tree_launches,
-             "storage_batch": storage_launches, "hash_batch": hash_launches}
+             "storage_batch": storage_launches, "hash_batch": hash_launches,
+             "combined_batch": rom_launches}
     for kernel in ("mxu96", "merkle", "keccak_f", "sha256_compress"):
         entries[kernel]["launches_by_path"] = {
             path: counts.get(kernel, 0) for path, counts in paths.items()}
@@ -1080,7 +1268,8 @@ def run(args, torch, child, cpu_path) -> int:
         if mode != "mxu96":
             entries[mode]["launches"] = n
     trace, prover, _ = batch["arith"]
-    profile_prove(torch, "arith", prover, trace)
+    profile_prove(torch, "arith", prover, trace,
+                  sum(prover.phase_times.values()))
 
     _log("chip_smoke: done")
     print(json.dumps({"kernels": [entries[m] for m in

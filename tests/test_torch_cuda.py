@@ -247,10 +247,11 @@ def test_state_tree_card_root_matches_cpu(card, monkeypatch):
     monkeypatch.setattr(poseidon_cuda, "MODE", "mxu96")
     before = poseidon_cuda.launches["mxu96"]
     tree = batches.state_tree(Database(), 1 << 10, 3, card)
-    # one launch per hash batch: value preimages, leaves, each level
-    assert poseidon_cuda.launches["mxu96"] - before == tree.depth + 2
-    assert tree.root == batches.state_tree(Database(), 1 << 10, 3,
-                                           "cpu").root
+    # one launch per hash batch: the keys' two, values, leaves, each level
+    assert poseidon_cuda.launches["mxu96"] - before == tree.depth + 4
+    cpu = batches.state_tree(Database(), 1 << 10, 3, "cpu")
+    assert tree.root == cpu.root
+    assert np.array_equal(tree.registers, cpu.registers)
 
 
 def test_storage_batch_card_proof_matches_cpu(card):
@@ -378,4 +379,29 @@ def test_small_hash_batch_card_proof_matches_cpu(card):
             assert ex.verify_all(proofs)
         jsons[str(dev)] = {name: proof.to_json()
                            for name, (_, proof) in proofs.items()}
+    assert jsons["cuda"] == jsons["cpu"]
+
+
+def test_small_rom_batch_card_proof_matches_cpu(card):
+    """The combined batch AIR of `small_rom_batch` (Main and the co-SMs
+    `default_include(9)` binds) proved on the card equals the CPU proof,
+    which tests/test_torch_combined.py holds to the JAX package's."""
+    from zkevm_prover_tpu_torch.executor import combined
+    from zkevm_prover_tpu_torch.executor import examples as batches
+    from zkevm_prover_tpu_torch.hashdb import Smt
+
+    jsons = {}
+    for dev in (card, "cpu"):
+        db, _, batch = batches.small_rom_batch(dev)
+        _, traces = combined.execute_batch(
+            batch.rom, batch.n_bits, input=batch.input, smt=Smt(db),
+            include=batch.include, device=dev)
+        air = combined.build_batch_air(batch.rom, batch.n_bits,
+                                       include=batch.include)
+        prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                             device=dev)
+        proof = prover.prove(air.stack_traces(traces))
+        if dev == card:
+            assert verify(prover.setup, prover.verkey, proof, device=dev)
+        jsons[str(dev)] = proof.to_json()
     assert jsons["cuda"] == jsons["cpu"]

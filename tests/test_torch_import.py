@@ -44,12 +44,53 @@ def test_port_imports_without_jax():
             "zkevm_prover_tpu_torch.ops.keccak",
             "zkevm_prover_tpu_torch.ops.sha256",
             "zkevm_prover_tpu_torch.ops.hash_cuda"} <= names
+    assert {"zkevm_prover_tpu_torch.executor.rom",
+            "zkevm_prover_tpu_torch.executor.eval_command",
+            "zkevm_prover_tpu_torch.executor.sm.main_sm",
+            "zkevm_prover_tpu_torch.executor.combined",
+            "zkevm_prover_tpu_torch.executor.forks",
+            "zkevm_prover_tpu_torch.ops.ecrecover",
+            "zkevm_prover_tpu_torch.stark.compose"} <= names
     hashdb = ("key_utils", "cache", "database", "smt", "state_manager",
               "hashdb_interface")
     hashdb64 = ("page_store", "database64", "key_value_history",
                 "level_tree", "state64")
     assert {f"zkevm_prover_tpu_torch.hashdb.{m}" for m in hashdb} <= names
     assert {f"zkevm_prover_tpu_torch.hashdb64.{m}" for m in hashdb64} <= names
+
+
+# the modules of the Main SM and combined-AIR slice
+SLICE_MODULES = ("executor.rom", "executor.eval_command", "ops.ecrecover",
+                 "executor.sm.main_sm", "stark.compose", "executor.combined",
+                 "executor.forks")
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_imports_without_jax_or_jax_package(module):
+    """Each module imports, and runs its entry point's host half, in a
+    process where neither `jax` nor `zkevm_prover_tpu` can be imported."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['zkevm_prover_tpu'] = None\n"
+        f"m = importlib.import_module('zkevm_prover_tpu_torch.{module}')\n"
+        "from zkevm_prover_tpu_torch.executor import combined, rom\n"
+        "rb = rom.RomBuilder()\n"
+        "rb.line(CONSTL=7, setA=1)\n"
+        "rb.line('A :MSTORE(3)', inA=1, mOp=1, mWR=1, offset=3)\n"
+        "rb.clear_registers(); rb.finalize()\n"
+        "r = rb.build()\n"
+        "res, tr = combined.execute_batch(r, 9, include=('memory',),"
+        " device='cpu')\n"
+        "air = combined.build_batch_air(r, 9, include=('memory',))\n"
+        "assert air.stack_traces(tr).shape == (512, len(air.cm_names))\n"
+        "assert not any(k == 'zkevm_prover_tpu' or"
+        " k.startswith('zkevm_prover_tpu.') or k.split('.')[0] == 'jax'"
+        " for k in sys.modules if sys.modules[k] is not None)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -93,9 +134,9 @@ def test_executor_refuses_unported_actions():
     from zkevm_prover_tpu_torch.executor import BatchActions, Executor
 
     ex = Executor(device="cpu")
-    # hashp is proved only inside the combined AIR, which is not ported
-    with pytest.raises(NotImplementedError, match="hashp"):
-        ex.execute(BatchActions(hashp=[{"data": b"a"}]))
+    # hashp is proved only inside the combined AIR (executor/combined.py):
+    # as in the JAX package, the action-list path fills no trace for it
+    assert ex.execute(BatchActions(hashp=[{"data": b"a"}])) == {}
     # keccak and sha256 are ported: they fill the padding SMs
     out = ex.execute(BatchActions(keccak=[{"data": b"a"}],
                                   sha256=[{"data": b"a"}]))

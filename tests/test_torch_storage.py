@@ -42,11 +42,11 @@ KEY3 = (1, 1, 1, 1)
 # Executor().prove_all on examples.small_storage_batch() (default sizes)
 PINS = {
     "storage":
-        "a0969c225b7a788e8f6399a0fb2d44409449e921b556c09147bf1d8c953cf1c5",
+        "2d2e882842f2e0d9707f643c3a77b89a63ffc7b0c7ab8654dce6bbf4c1a4c353",
     "poseidon_g":
-        "141a237164c3abe1d59e38ff9486b35f3d9c9e4776421cecb4d9d844245ba73b",
+        "d7308821029115e7d12f1d4a9bb01372aa232a209031f90894c8d3c584845b2e",
     "climb_key":
-        "6879a8efe86db09fe228e56c29b309da5497cc1523cfaf0fe39a5dc7fca5927f",
+        "eb60595f57a80a1675a13d83ce08d5eba9e0629636d050e80293ef5d33406ecb",
 }
 
 

@@ -32,9 +32,12 @@ from ..hashdb import key_utils as ku
 from ..hashdb.smt import ZERO4, fea8_to_scalar
 from ..ops import goldilocks as gl
 from ..ops import poseidon_gl
+from . import combined
 from .executor import BatchActions
-from .sm import (arith, binary, climb_key, keccak_circuit, padding_kk,
-                 padding_sha256, sha256_circuit, storage)
+from .rom import RomBuilder
+from .sm import (arith, binary, climb_key, keccak_circuit, mem_align,
+                 padding_kk, padding_pg_byte, padding_sha256, poseidon_g,
+                 sha256_circuit, storage)
 
 P = 0xFFFFFFFF00000001
 # secp256k1 generator G and 2G
@@ -172,12 +175,14 @@ def full_batch(executor, seed: int = 2) -> dict:
 
 @dataclasses.dataclass
 class StateTree:
-    """What `state_tree` built: the root, the keys ((n, 4) uint64) and
-    their values, the number of nodes written and the deepest leaf's
-    level."""
+    """What `state_tree` built: the root, the keys ((n, 4) uint64), each
+    key's register limbs ((n, 16) uint64: A0..A5, B0, B1, C0..C7, see
+    `smt_keys`) and the values, the number of nodes written and the
+    deepest leaf's level."""
 
     root: tuple
     keys: np.ndarray
+    registers: np.ndarray
     values: list
     nodes: int
     depth: int
@@ -213,10 +218,40 @@ def _hash_batch(states: np.ndarray, device) -> np.ndarray:
     return gl.to_u64(out[:, :4])
 
 
+def account_registers(rng: np.random.Generator, count: int) -> np.ndarray:
+    """`count` random state keys as the Main SM's key registers, (count, 16)
+    uint64 32-bit limbs A0..A5, B0, B1, C0..C7: A a 160-bit address, B the
+    key type (0 balance, 1 nonce, 3 storage slot: 15 %, 15 %, 70 %), C the
+    slot (a random 256-bit slot for storage keys, else 0)."""
+    regs = rng.integers(0, 1 << 32, (count, 16), dtype=np.uint64)
+    regs[:, 5] = 0
+    kind = rng.choice(np.array([0, 1, 3], np.uint64), size=count,
+                      p=[0.15, 0.15, 0.70])
+    regs[:, 6], regs[:, 7] = kind, 0
+    regs[kind != 3, 8:16] = 0
+    return regs
+
+
+def smt_keys(registers: np.ndarray, device) -> np.ndarray:
+    """The SMT keys the Main SM derives on sRD/sWR rows from key registers
+    ((m, 16) limbs, as `account_registers` makes them): KEY = H(A0..A5,
+    B0, B1 | H(C0..C7 | 0)), lanes 0..3 of each permutation (`main_sm`'s
+    `_smt_key_full`), in two batches through `poseidon_gl.permute` on
+    `device`."""
+    m = len(registers)
+    kin0 = np.concatenate([registers[:, 8:16], np.zeros((m, 4), np.uint64)],
+                          axis=1)
+    kin1 = np.concatenate([registers[:, 0:8], _hash_batch(kin0, device)],
+                          axis=1)
+    return _hash_batch(kin1, device)
+
+
 def state_tree(db, n_keys: int, seed: int, device=None) -> StateTree:
-    """The canonical sparse Merkle tree of `n_keys` random keys (4 field
-    elements each) with random 256-bit values, from
-    np.random.default_rng(seed), written into `db` (`Database.multi_write`).
+    """The canonical sparse Merkle tree of `n_keys` keys with random 256-bit
+    values, from np.random.default_rng(seed), written into `db`
+    (`Database.multi_write`). The keys are those the Main SM derives from
+    random key registers (`account_registers`, `smt_keys`), kept in
+    `StateTree.registers`, so that a ROM can read and write them.
 
     The tree is `hashdb.Smt`'s: its root depends only on the key/value
     set, so it equals the root of sequential `Smt.set` inserts. A leaf sits
@@ -229,11 +264,16 @@ def state_tree(db, n_keys: int, seed: int, device=None) -> StateTree:
     refused."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    keys = rng.integers(0, gl.P, (n_keys, 4), dtype=np.uint64)
+    # an unused draw, kept so that each seed's tree (and the proofs pinned
+    # over it) stays what it was
+    rng.integers(0, gl.P, (n_keys, 4), dtype=np.uint64)
     limbs = rng.integers(0, 1 << 32, (n_keys, 8), dtype=np.uint64)
+    regs = account_registers(rng, n_keys)
+    keys = smt_keys(regs, dev)
     words = _path_words(keys)
     order = np.argsort(words, kind="stable")
-    keys, limbs, words = keys[order], limbs[order], words[order]
+    keys, limbs, words, regs = (keys[order], limbs[order], words[order],
+                                regs[order])
     diff = words[1:] ^ words[:-1]
     if not diff.all():
         raise ValueError("two keys share 64 path bits")
@@ -284,7 +324,7 @@ def state_tree(db, n_keys: int, seed: int, device=None) -> StateTree:
         (hexed[i:i + 64] for i in range(0, len(hexed), 64)),
         preimages.tolist())))
     values = [fea8_to_scalar(row) for row in limbs.tolist()]
-    return StateTree(tuple(int(v) for v in root_h[0]), keys, values,
+    return StateTree(tuple(int(v) for v in root_h[0]), keys, regs, values,
                      len(hashes), d_max)
 
 
@@ -491,3 +531,374 @@ def small_hash_batch() -> HashBatch:
                 "sha256_f": 12},
         gates={"keccak_f": {"rounds": 1, "pack": 4, "limb_bits": 2},
                "sha256_f": {"rounds": 1, "pack": 4, "limb_bits": 2}})
+
+
+# ---------------------------------------------------------------------------
+# the Main SM and the combined batch AIR: a straight-line ROM at the op rates
+# of a measured batch
+# ---------------------------------------------------------------------------
+
+# counters of the fork-9 e2e vector per 7,115 Main steps
+# (artifacts/spine_fork9_2e14/meta.json); poseidonG counts the sRD/sWR rows'
+# incCounter (the storage walk's hashes + 2 key hashes) and the hashP digests
+SPINE_STEPS = 7115
+SPINE_COUNTERS = {"arith": 487, "binary": 670, "keccakF": 6, "paddingPG": 3,
+                  "poseidonG": 292}
+# rates meta.json does not give, chosen: memory accesses (MLOAD / MSTORE)
+# per step, and mem_align ops per step (the spine has none; rd, wr and wr8
+# in turn, the first three placed at once, so that each binding runs)
+MEMORY_RATE = 0.25
+MEM_ALIGN_RATE = 1 / 2000
+# the Storage SM's action mix (`storage_batch`): get present, get absent,
+# update, insert, delete, as cumulative shares
+STORAGE_MIX = (0.30, 0.40, 0.90, 0.98)
+# hashP message bytes (contract bytecode pieces), uniform: chosen
+HASHP_BYTES = (32, 300)
+# the ROM's closing lines: restore B, zero the rest, CTX, GAS; the final
+# wait spins at least once and its jump back to line 0 takes the last row
+_CLOSE_LINES = 6
+CHAIN_ID, FORK_ID = 1000, 9
+
+_ARITH_KINDS = ("mul", "add", "dbl", "mulfp2", "addfp2", "subfp2")
+_MEM_ALIGN_KINDS = ("rd", "wr", "wr8")
+
+
+@dataclasses.dataclass
+class RomBatch:
+    """A batch for the Main SM: its ROM and input, the SMs bound in the
+    combined AIR (`include`), each bound SM's fill ({sm: (used, capacity
+    less one group)}, Main's in steps), the counter that closed the batch
+    and the ops of each kind."""
+
+    rom: object
+    input: dict
+    n_bits: int
+    include: tuple
+    fill: dict
+    closed_by: str
+    ops: dict
+
+
+def _capacities(n_bits: int, include: tuple) -> dict:
+    """Each bound SM's capacity less one group, in the units the batch
+    fills it with; "main" is the body's steps."""
+    n = 1 << n_bits
+    cap = {"main": n - _CLOSE_LINES - 2}
+    if "memory" in include:
+        cap["memory"] = n - 1
+    if "binary" in include:
+        slice_bits = combined._slice_bits(n_bits)
+        cap["binary"] = n // binary.rows_per_op(slice_bits) - 1
+    if "arith" in include:
+        cap["arith"] = n // arith.GROUP - 1
+    if "mem_align" in include:
+        cap["mem_align"] = n // mem_align.GROUP - 1
+    if "storage" in include:
+        cap["storage"] = n - 1
+    if "poseidon_g" in include:
+        cap["poseidon_g"] = n // poseidon_g.GROUP - 1
+    if "climb_key" in include:
+        cap["climb_key"] = n // (64 // climb_key.params_for(n_bits)[0]) - 1
+    if "padding_pg" in include:
+        cap["padding_pg"] = n // padding_pg_byte.BLOCK - 1
+    return cap
+
+
+def _scalar(limbs) -> int:
+    """A register's value from its 32-bit limbs."""
+    return sum(int(v) << (32 * i) for i, v in enumerate(limbs))
+
+
+def rom_batch(n_bits: int, smt, tree: StateTree, seed: int) -> RomBatch:
+    """A straight-line ROM for the Main SM (one line per step, every
+    operand its own, from np.random.default_rng(seed)) with its input, at
+    the per-step rates of the fork-9 e2e vector's counters
+    (`SPINE_COUNTERS`): arith (its six equations in turn), binary (its
+    eight opcodes in turn), keccakF (hashK messages in `KECCAK_MIX`
+    lengths) and paddingPG (hashP messages) per step as there, sRD/sWR at
+    the rate that makes the PoseidonG counter per step match the spine's,
+    in `STORAGE_MIX` over the keys of `tree` (a `state_tree` whose nodes
+    are in `smt.db`); memory and mem_align at the
+    chosen `MEMORY_RATE` and `MEM_ALIGN_RATE`. At each step the op whose
+    counter is furthest behind its rate is placed; a step with none behind
+    is a no-op line.
+
+    The batch closes when the next op would overflow a bound SM (those of
+    `combined.default_include(n_bits)`, and Main's steps) past its
+    capacity less one group, as the reference closes a batch on its
+    scarcest counter. The input starts from the tree's root
+    (`oldStateRootScalar`; the first line copies B into SR) and the ROM
+    closes by restoring the input registers, spinning to the last row and
+    zeroing SR on the jump back to line 0, so that SR holds the new state
+    root in the last row (the `newStateRoot` public). Sets run through
+    `smt.set` while the batch is drawn, so `smt.db` holds the trees the
+    Main SM will walk."""
+    include = combined.default_include(n_bits)
+    rng = np.random.default_rng(seed)
+    db = smt.db
+    cap = _capacities(n_bits, include)
+    used = {sm: 0 for sm in cap}
+    used["main"] = 1               # the first line, B => SR
+    rates = {k: v / SPINE_STEPS for k, v in SPINE_COUNTERS.items()}
+    rates.update(memory=MEMORY_RATE, memAlign=MEM_ALIGN_RATE)
+    counters = {k: 0 for k in rates}
+    ops = {"arith": 0, "binary": 0, "memory": 0, "mem_align": 0,
+           "storage_get": 0, "storage_set": 0, "keccak": 0, "hashp": 0,
+           "nop": 0}
+    root = tuple(int(v) for v in tree.root)
+    osr = sum(v << (64 * i) for i, v in enumerate(root))
+    n_tree = len(tree.keys)
+    present = list(range(n_tree))
+    extra: list = []           # (registers, key) of inserted keys
+    written: list = []         # memory addresses written so far
+    rb = RomBuilder()
+    rb.line("B => SR", inB=1, setSR=1)
+
+    def key_of(regs) -> tuple:
+        return tuple(int(v) for v in smt_keys(regs[None], "cpu")[0])
+
+    def entry(i):
+        if i < n_tree:
+            return tree.registers[i], tuple(int(v) for v in tree.keys[i])
+        return extra[i - n_tree]
+
+    def key_lines(regs) -> list:
+        return [("A", _scalar(regs[0:6])), ("B", _scalar(regs[6:8])),
+                ("C", _scalar(regs[8:16]))]
+
+    def set_lines(pairs) -> list:
+        return [(f"{v:#x} => {r}", {"CONSTL": v, f"set{r}": 1})
+                for r, v in pairs]
+
+    def storage_op():
+        u = rng.random()
+        kind = ("get", "get", "update", "insert", "delete")[
+            int(np.searchsorted(STORAGE_MIX, u, side="right"))]
+        pick = None
+        if kind == "insert" or (kind == "get" and u >= STORAGE_MIX[0]):
+            regs = account_registers(rng, 1)[0]
+            key = key_of(regs)
+        else:
+            pick = int(rng.integers(len(present)))
+            regs, key = entry(present[pick])
+        if kind == "get":
+            act = {"op": "get", "root": root, "key": key,
+                   "value": smt.get(root, key).value}
+            lines = set_lines(key_lines(regs)) + [
+                ("$ => E :SLOAD", {"inFREE": 1, "sRD": 1, "setE": 1})]
+        else:
+            value = 0 if kind == "delete" else \
+                int.from_bytes(rng.bytes(32), "little") or 1
+            act = {"op": "set", "root": root, "key": key, "value": value,
+                   "new_root": smt.set(root, key, value).new_root}
+            lines = set_lines(key_lines(regs) + [("D", value)]) + [
+                ("$ => SR :SSTORE", {"inFREE": 1, "sWR": 1, "setSR": 1})]
+        hashes = storage.hash_count(act, db) + 2
+        rows = storage.rows(act, db)
+        delta = {"storage": rows, "poseidon_g": hashes,
+                 "climb_key": rows - 1}
+
+        def commit():
+            nonlocal root
+            ops["storage_" + act["op"]] += 1
+            counters["poseidonG"] += hashes
+            root = act.get("new_root", root)
+            if kind == "delete":
+                present[pick] = present[-1]
+                present.pop()
+            elif kind == "insert":
+                extra.append((regs, key))
+                present.append(n_tree + len(extra) - 1)
+        return lines, delta, commit
+
+    def hash_op(kind: str):
+        if kind == "K":
+            _, lo, hi = KECCAK_MIX[int(np.searchsorted(
+                np.cumsum([m[0] for m in KECCAK_MIX]), rng.random(),
+                side="right"))]
+        else:
+            lo, hi = HASHP_BYTES
+        data = rng.bytes(int(rng.integers(lo, hi + 1)))
+        addr = ops["keccak"] + ops["hashp"]     # one address per message
+        lines = [("0 => HASHPOS", {"CONST": 0, "setHASHPOS": 1})]
+        for p in range(0, len(data), 32):
+            chunk = data[p:p + 32]
+            lines += [(f"{len(chunk)} => D", {"CONST": len(chunk),
+                                              "setD": 1}),
+                      ("chunk => A", {"CONSTL": int.from_bytes(chunk, "big"),
+                                      "setA": 1}),
+                      (f"A :HASH{kind}({addr})",
+                       {"inA": 1, f"hash{kind}": 1, "offset": addr})]
+        lines += [(f"HASHPOS :HASH{kind}LEN({addr})",
+                   {"inHASHPOS": 1, f"hash{kind}Len": 1, "offset": addr}),
+                  (f"$ => B :HASH{kind}DIGEST({addr})",
+                   {"inFREE": 1, f"hash{kind}Digest": 1, "offset": addr,
+                    "setB": 1})]
+        if kind == "K":
+            blocks = padding_kk.message_blocks(data)
+            delta = {}
+        else:
+            blocks = (len(data) + 1 + 55) // 56
+            delta = {"padding_pg": blocks}
+
+        def commit():
+            if kind == "K":
+                ops["keccak"] += 1
+                counters["keccakF"] += blocks
+            else:
+                ops["hashp"] += 1
+                counters["paddingPG"] += blocks
+                counters["poseidonG"] += blocks
+        return lines, delta, commit
+
+    def arith_op():
+        kind = _ARITH_KINDS[ops["arith"] % len(_ARITH_KINDS)]
+        # the free input (the result's low word or y3) lands in E for the
+        # multiplication, in A for the others (whose x3 E holds)
+        flag = {f"arithEq{_ARITH_KINDS.index(kind)}": 1, "inFREE": 1,
+                "setE" if kind == "mul" else "setA": 1}
+        if kind == "mul":
+            x1, y1, x2 = _ints(rng, 3, 256)
+            regs = [("A", x1), ("B", y1), ("C", x2),
+                    ("D", (x1 * y1 + x2) >> 256)]
+        elif kind in ("add", "dbl"):
+            p = arith.FPEC
+            x1, y1, x2, y2 = (v % p for v in _ints(rng, 4, 256))
+            y1 = y1 or 1
+            if kind == "add":
+                x2 = x2 if x2 != x1 else (x1 + 1) % p
+                x3, _ = arith.ec_result("add", x1, y1, x2, y2)
+                regs = [("A", x1), ("B", y1), ("C", x2), ("D", y2),
+                        ("E", x3)]
+            else:
+                x3, _ = arith.ec_result("dbl", x1, y1)
+                regs = [("A", x1), ("B", y1), ("E", x3)]
+        else:
+            x1, y1, x2, y2 = (v % arith.PBN for v in _ints(rng, 4, 256))
+            x3, _ = arith.fp2_result(kind, x1, y1, x2, y2)
+            regs = [("A", x1), ("B", y1), ("C", x2), ("D", y2), ("E", x3)]
+        lines = set_lines(regs) + [(f"$ :ARITH {kind}", flag)]
+
+        def commit():
+            ops["arith"] += 1
+            counters["arith"] += 1
+        return lines, {"arith": 1}, commit
+
+    def binary_op():
+        names = list(binary.OPS)
+        name = names[ops["binary"] % len(names)]
+        a, b = _ints(rng, 2, 256)
+        lines = set_lines([("A", a), ("B", b)]) + [
+            (f"$ => C :{name}", {"inFREE": 1, "bin": 1,
+                                 "binOpcode": binary.OPS[name],
+                                 "setC": 1})]
+
+        def commit():
+            ops["binary"] += 1
+            counters["binary"] += 1
+        return lines, {"binary": 1}, commit
+
+    def mem_align_op():
+        kind = _MEM_ALIGN_KINDS[ops["mem_align"] % len(_MEM_ALIGN_KINDS)]
+        m0, m1 = _ints(rng, 2, 256)
+        # a byte write stays inside the A word (offset < 32), as MSTORE8
+        off = int(rng.integers(0, 32 if kind == "wr8" else 33))
+        regs = [("A", m0), ("B", m1), ("C", off)]
+        if kind == "rd":
+            lines = set_lines(regs) + [
+                ("$ => D :MEM_ALIGN_RD", {"inFREE": 1, "memAlignRD": 1,
+                                          "setD": 1})]
+        else:
+            span = 32 if kind == "wr" else 1
+            val = _ints(rng, 1, 8 * span)[0]
+            lo, hi = mem_align.result({"op": kind, "w0": m1, "w1": m0,
+                                       "offset": 64 - off - span,
+                                       "value": val})
+            regs += [("D", hi)] + ([("E", lo)] if kind == "wr" else [])
+            flag = "memAlignWR" if kind == "wr" else "memAlignWR8"
+            lines = set_lines(regs) + [
+                (f"value :{flag.upper()}", {"CONSTL": val, flag: 1})]
+
+        def commit():
+            ops["mem_align"] += 1
+            counters["memAlign"] += 1
+        return lines, {"mem_align": 1}, commit
+
+    def memory_op():
+        write = not written or rng.random() >= 0.5
+        if write:
+            addr = int(rng.integers(0, 1 << 16))
+            lines = [(f"A :MSTORE({addr})", {"inA": 1, "mOp": 1, "mWR": 1,
+                                             "offset": addr})]
+        else:
+            addr = written[int(rng.integers(len(written)))]
+            lines = [(f"$ => E :MLOAD({addr})", {"inFREE": 1, "mOp": 1,
+                                                  "offset": addr,
+                                                  "setE": 1})]
+
+        def commit():
+            ops["memory"] += 1
+            counters["memory"] += 1
+            if write:
+                written.append(addr)
+        return lines, {"memory": 1}, commit
+
+    def nop():
+        return [("nop", {})], {}, lambda: ops.update(nop=ops["nop"] + 1)
+
+    kinds = (("poseidonG", storage_op), ("keccakF", lambda: hash_op("K")),
+             ("paddingPG", lambda: hash_op("P")),
+             ("memAlign", mem_align_op), ("arith", arith_op),
+             ("binary", binary_op), ("memory", memory_op))
+    while True:
+        # the op whose counter fell furthest behind its rate (the earliest
+        # step its next unit was due); mem_align's first three at once
+        due = sorted(
+            (0.0 if ctr == "memAlign"
+             and counters[ctr] < len(_MEM_ALIGN_KINDS)
+             else counters[ctr] / rates[ctr], i, make)
+            for i, (ctr, make) in enumerate(kinds)
+            if counters[ctr] < rates[ctr] * (used["main"] + 1)
+            or (ctr == "memAlign" and counters[ctr] < len(_MEM_ALIGN_KINDS)))
+        lines, delta, commit = (due[0][2] if due else nop)()
+        delta = {"main": len(lines),
+                 **{sm: k for sm, k in delta.items() if sm in cap}}
+        over = [sm for sm, k in delta.items() if used[sm] + k > cap[sm]]
+        if over:
+            closed_by = over[0]
+            break
+        for line_str, kw in lines:
+            rb.line(line_str, **kw)
+        for sm, k in delta.items():
+            used[sm] += k
+        commit()
+
+    # close: restore the input registers (B = the old root, CTX, GAS), zero
+    # the rest, spin to the last row and zero SR on the jump to line 0
+    rb.line("old root => B", CONSTL=osr, setB=1)
+    rb.line("0 => A,C,D,E,SP,PC,RR,HASHPOS,RCX", CONST=0,
+            **{f"set{r}": 1 for r in ("A", "C", "D", "E", "SP", "PC", "RR",
+                                       "HASHPOS", "RCX")})
+    rb.line(f"{FORK_ID} => CTX", CONST=FORK_ID, setCTX=1)
+    rb.line(f"{CHAIN_ID} => GAS", CONST=CHAIN_ID, setGAS=1)
+    rb.label("finalWait")
+    rb.free({"op": "functionCall", "funcName": "beforeLast", "params": []},
+            JMPN=1, useJmpAddr=1, jmpAddr="finalWait")
+    rb.jmp(0, setSR=1)
+    rom = rb.build()
+    inp = {"oldStateRootScalar": osr, "oldAccInputHash": 0,
+           "oldBatchNum": 0, "chainID": CHAIN_ID, "forkID": FORK_ID}
+    fill = {sm: (used[sm], cap[sm]) for sm in cap}
+    return RomBatch(rom, inp, n_bits, include, fill, closed_by, ops)
+
+
+def small_rom_batch(device=None) -> tuple:
+    """The ROM batch of the CPU tests and of the card's small proof:
+    `rom_batch` (seed 9) at 2^9 over a 4-key `state_tree` (seed 9, main
+    keys), the JAX package's default sizes. Returns the database holding
+    the trees, the tree and the batch."""
+    from ..hashdb import Database, Smt
+
+    db = Database()
+    tree = state_tree(db, 4, 9, device)
+    return db, tree, rom_batch(9, Smt(db), tree, 9)

@@ -2,9 +2,9 @@
 prove each one with its own eSTARK.
 
 Counterpart of `zkevm_prover_tpu/executor/executor.py` (reference:
-src/executor/executor.cpp:487-610). Only the SMs in `_SM_MODULES` are ported
-so far; hashp actions raise NotImplementedError (the JAX package's Executor
-drops them: they are proved only inside the combined AIR).
+src/executor/executor.cpp:487-610). hashp actions fill no trace here, as in
+the JAX package: their byte stream (PaddingPGByte) is proved only inside
+the combined AIR (`executor/combined.py`), bound to Main and PaddingPG.
 """
 
 from __future__ import annotations
@@ -149,12 +149,8 @@ class Executor:
         inputs, "sha256_f": compressions, one per active block; as in the
         JAX package they are proved apart, by `keccak_f` and `sha256_f` at
         their own domains) and `digests` the padding SMs' message digests.
+        hashp actions take no trace here (the combined AIR proves them).
         """
-        ported = {_ACTION_FIELD.get(name, name) for name in _SM_MODULES}
-        for field in dataclasses.fields(actions):
-            if field.name not in ported and getattr(actions, field.name):
-                raise NotImplementedError(
-                    f"{field.name} actions: that state machine is not ported")
         if actions.storage and db is None:
             raise ValueError("storage actions require the hashdb database "
                              "(pass db=smt.db)")

@@ -26,13 +26,17 @@ Phases (any failure exits nonzero; no phase catches and continues):
     (`merkle.merkelize_levels_plain`) at 2^22 x 48 and against the chunked
     tree through kernel 1 at 2^21 x 189 (arith's stage-1 section), every
     level; fused, chunked and plain timed beside `merkle_bound`;
- 3c. the hash kernels (csrc/hash.cu): Keccak-f and the SHA-256 compression
-    against their plain torch twins on the card, bit for bit, on 515 random
-    instances and on 2^20 + 37; against the host oracles (`_keccak_f_host`
-    on 64 states, hashlib on `sha256_blocks` of 64 single-block messages);
-    each timed at 2^10, 2^16, 2^20 and 2^22 instances beside the plain time
-    and its bound (`keccak_bound`, `sha256_bound`: 32-bit logic, shift and
-    add operations at the integer rate against the bytes at 3.35 TB/s);
+ 3c. the hash kernels (csrc/hash.cu): Keccak-f, the SHA-256 compression
+    and the Blake2b compression against their plain torch twins on the
+    card, bit for bit, on 515 random instances and on 2^20 + 37 (Blake2b's
+    with both last-block flags and the counter at 0, 128 and 2^64 - 1);
+    against the host oracles (`_keccak_f_host` on 64 states, hashlib on
+    `sha256_blocks` of 64 single-block messages, on `blake2b_256_many` of
+    64 single-block messages and on `blake2b_256` of 0, 1, 127, 128, 129
+    and 1,000 bytes); each timed at 2^10, 2^16, 2^20 and 2^22 instances
+    beside the plain time and its bound (`keccak_bound`, `sha256_bound`,
+    `blake2b_bound`: 32-bit logic, shift, byte-permute and add operations
+    at the integer rate against the bytes at 3.35 TB/s);
  4b. the state tree: `executor.examples.state_tree` at 2^12 keys on the
     card gives the CPU's root; then at 2^20 keys (`TREE_BITS`) on the
     card, its permutations through the mxu96 kernel (counters zeroed just
@@ -74,7 +78,12 @@ Phases (any failure exits nonzero; no phase catches and continues):
     `executor.examples.small_rom_batch` (Main and the seven co-SMs that
     `combined.default_include(9)` binds, 2^9): `combined.execute_batch`,
     `build_batch_air`, one proof, card bytes == CPU bytes, and it
-    verifies on the card;
+    verifies on the card; and the JAX pipeline test's memory batch
+    through `Prover`'s request queue (`submit_request(ProverRequest(
+    "genBatchProof", ...))`, `wait_for_request`); then the CLI,
+    `python -m zkevm_prover_tpu_torch --prove` of that batch's input JSON
+    on the card in a subprocess, whose batch_proof.json must equal the
+    child's CLI run on the CPU;
  5b. the combined batch at full width: `executor.examples.rom_batch` at
     2^`ROM_BITS` (17) over the 2^20-key tree, its ROM at the fork-9
     e2e vector's per-step op rates, closed on the scarcest bound SM;
@@ -95,26 +104,39 @@ Phases (any failure exits nonzero; no phase catches and continues):
  5. the co-processor batch at 2^`--bits` (19; 2^20 until the combined
     batch joined, cut to keep the run inside its time limit) under
     `poseidon_cuda.MODE = "mxu96"` — every ported SM filled to its capacity
-    less one group (`executor.examples.full_batch`), each executed and
-    proved through `Executor.execute` / `prove_traces` (the halves of
-    `prove_all`), then `verify_all`, and a tampered proof of each SM must be
-    rejected. The kernel launch counters are zeroed just before the proofs
-    and read just after `verify_all`: the fused Merkle kernel (every commit)
-    and the mxu96 permutation (the verifier's paths) must both have run,
-    and no other mode's kernel;
- 6. every other mode on the path: mem_align's full-width trace re-proved
-    under each mode, counters zeroed before and read after: under mxu96 the
-    commits go through the fused Merkle kernel, under every other mode
-    through that mode's permutation and never the fused kernel; each proof
-    must equal the mxu96 proof byte for byte;
- 7. a re-prove of arith (the widest AIR) under torch.profiler (device
-    busy time, idle share, the Poseidon kernels' share, the top device
-    ops), beside its phase-5 prove's time, its first;
+    less one group (`executor.examples.full_batch`) in a `ProofInput`,
+    executed, checkpointed and proved through the entry point,
+    `Prover(n_bits=..., device="cuda").gen_batch_proof(inp,
+    save_cm_pols=PATH)`, then `verify_batch_proof`; the publics
+    (new batch number = old + 1; newAccInputHash = what
+    `PublicInputs.acc_input_hash()` gives, the entry point's plumbing, and
+    = the JAX package's value pinned for these publics, the recurrence)
+    checked and a tampered proof of each SM rejected; the Prover's timers
+    (EXECUTOR_EXECUTE_BATCH_PROOF, STARK_PROOF_BATCH_PROOF,
+    SAVE_CM_POLS_BATCH_PROOF) beside the script's clock, the checkpoint's
+    size, and per SM its AIR's host seconds, its setup's, its prove's wall
+    and phases and its peak device memory. Every kernel counter (the
+    hash kernels' too, on every path) is zeroed just before the
+    `gen_batch_proof` and read just after `verify_batch_proof`: the fused
+    Merkle kernel (every commit) and the mxu96 permutation (the verifier's
+    paths) must both have run, and no other mode's kernel;
+ 6. the checkpoint: `load_commit_pols(PATH)` gives back every SM's trace,
+    equal to the traces proved; then every mode on the path: mem_align's
+    full-width trace resumed from a mem_align-only checkpoint through
+    `gen_batch_proof_from_commit` under mxu96 (commits through the fused
+    Merkle kernel) and re-proved under every other mode (through that
+    mode's permutation and never the fused kernel), counters zeroed before
+    and read after each; every proof must equal phase 5's byte for byte;
+ 7. a re-prove of arith (the widest AIR, its trace from the checkpoint)
+    under torch.profiler (device busy time, idle share, the Poseidon
+    kernels' share, the top device ops), beside its phase-5 prove's time,
+    its first;
  8. a kernels line (JSON: each mode's kernel, the fused Merkle kernel and
-    the two hash kernels, its launches on the main paths, summed and by
+    the three hash kernels, its launches on the main paths, summed and by
     path (the co-processor batch, the state tree, the storage batch, the
-    hash batch, the combined batch), its time, its bound and its plain
-    version's time) and a final line {"ok": true, "device": {...}}.
+    hash batch, the combined batch; Blake2b's are 0 on every path, since
+    nothing calls it outside its checks), its time, its bound and its
+    plain version's time) and a final line {"ok": true, "device": {...}}.
 
 It needs the CUDA toolkit (nvcc) and one card; without CUDA it exits
 nonzero before printing anything.
@@ -171,11 +193,20 @@ def _bound(perms: int, n_bytes: int) -> tuple[float, str]:
 # Sigma0 each 3 rotations and a three-input XOR, Ch and Maj one LOP3 each,
 # 4 three-input adds), 8 feed-forward adds. Every word moves as an int64:
 # Keccak 25 in and 25 out, SHA-256 24 in and 8 out.
+# Blake2b, per G quarter-round: two three-operand 64-bit sums (an
+# add-with-carry pair each), two two-operand sums (a pair each), four
+# 64-bit XORs (one LOP3 per half), the rotations by 24 and 16 one PRMT per
+# half, by 63 one funnel shift per half, by 32 none (a swap of the
+# halves): 22; 8 G per round, 12 rounds; the counter's XOR (2), the flag's
+# negation and XOR (4), the output's three-input XORs 8 x 2. Words move as
+# int64s: h 8, m 16, t 1 in, 8 out, and the flag's byte.
 INT_OPS_PER_S = IMAD_PER_S
 KECCAK_OPS = 24 * (5 * 2 * 2 + 5 * 2 + 25 * 2 + 24 * 2 + 25 * 2 + 2)
 SHA256_OPS = 48 * (2 * 4 + 2) + 64 * (2 * 4 + 2 + 4) + 8
+BLAKE2B_OPS = 12 * 8 * (2 * 2 + 2 * 2 + 4 * 2 + 3 * 2) + 2 + 4 + 8 * 2
 KECCAK_BYTES = 25 * 8 * 2
 SHA256_BYTES = (8 + 16 + 8) * 8
+BLAKE2B_BYTES = (8 + 16 + 1 + 8) * 8 + 1
 
 
 def _int_bound(n: int, ops: int, n_bytes: int) -> tuple[float, str]:
@@ -193,6 +224,11 @@ def keccak_bound(n: int) -> tuple[float, str]:
 def sha256_bound(n: int) -> tuple[float, str]:
     """(least ms, what bounds it) for n SHA-256 compressions."""
     return _int_bound(n, SHA256_OPS, SHA256_BYTES)
+
+
+def blake2b_bound(n: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for n Blake2b compressions."""
+    return _int_bound(n, BLAKE2B_OPS, BLAKE2B_BYTES)
 
 
 def poseidon_bound(h: int) -> tuple[float, str]:
@@ -446,30 +482,43 @@ def check_ntt(torch, gl) -> None:
 HASH_KERNELS = {
     "keccak_f": ("zkevm_prover_tpu/ops/keccak.py:56", keccak_bound),
     "sha256_compress": ("zkevm_prover_tpu/ops/sha256.py:40", sha256_bound),
+    "blake2b_compress": ("zkevm_prover_tpu/ops/blake.py:93", blake2b_bound),
 }
 
 
 def check_hash(torch, gl) -> dict:
-    """The Keccak-f and SHA-256 kernels against their plain twins on the
-    card (515 random and 2^20 + 37 instances) and the host oracles, each
-    timed at 2^10, 2^16, 2^20 and 2^22 instances; returns the kernels-line
-    entry of each (without `launches`)."""
+    """The Keccak-f, SHA-256 and Blake2b kernels against their plain twins
+    on the card (515 random and 2^20 + 37 instances; Blake2b's with both
+    flags and the counter at 0, 128 and 2^64 - 1) and the host oracles,
+    each timed at 2^10, 2^16, 2^20 and 2^22 instances; returns the
+    kernels-line entry of each (without `launches`)."""
     import hashlib
 
-    from zkevm_prover_tpu_torch.ops import keccak, sha256
+    from zkevm_prover_tpu_torch.ops import blake, keccak, sha256
 
     def inputs(name, n, seed):
         rng = np.random.default_rng(seed)
         if name == "keccak_f":
             return (gl.from_u64(rng.integers(0, 1 << 64, (n, 25),
                                              dtype=np.uint64), "cuda"),)
+        if name == "blake2b_compress":
+            t = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+            t[:3] = (0, 128, (1 << 64) - 1)
+            last = rng.integers(0, 2, n).astype(bool)
+            last[:2] = (False, True)
+            return tuple(gl.from_u64(rng.integers(0, 1 << 64, (n, w),
+                                                  dtype=np.uint64), "cuda")
+                         for w in (8, 16)) + (
+                gl.from_u64(t, "cuda"), torch.as_tensor(last, device="cuda"))
         return tuple(gl.from_u64(rng.integers(0, 1 << 32, (n, w),
                                               dtype=np.uint64), "cuda")
                      for w in (8, 16))
 
     fns = {"keccak_f": (keccak.keccak_f, keccak.keccak_f_plain),
            "sha256_compress": (sha256.sha256_compress,
-                               sha256.sha256_compress_plain)}
+                               sha256.sha256_compress_plain),
+           "blake2b_compress": (blake.blake2b_compress,
+                                blake.blake2b_compress_plain)}
     for name, (kernel, plain) in fns.items():
         for n, seed in ((515, 60), ((1 << 20) + 37, 61)):
             args = inputs(name, n, seed)
@@ -498,13 +547,25 @@ def check_hash(torch, gl) -> dict:
     if any(bytes(d) != hashlib.sha256(m).digest()
            for m, d in zip(msgs, digests)):
         _fail("sha256_blocks on the card != hashlib")
-    _log("hash: keccak_f and sha256_compress kernels == plain on 515 and "
-         "2^20 + 37 instances; keccak_f == _keccak_f_host on 64 states, "
-         "sha256_blocks == hashlib on 64 single-block messages")
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 129, 64)]
+    if blake.blake2b_256_many(msgs, device="cuda") != [
+            hashlib.blake2b(m, digest_size=32).digest() for m in msgs]:
+        _fail("blake2b_256_many on the card != hashlib")
+    for n in (0, 1, 127, 128, 129, 1000):
+        data = rng.bytes(n)
+        if blake.blake2b_256(data, device="cuda") != hashlib.blake2b(
+                data, digest_size=32).digest():
+            _fail(f"blake2b_256 of {n} bytes on the card != hashlib")
+    _log("hash: keccak_f, sha256_compress and blake2b_compress kernels == "
+         "plain on 515 and 2^20 + 37 instances; keccak_f == _keccak_f_host "
+         "on 64 states, sha256_blocks == hashlib on 64 single-block "
+         "messages, blake2b_256_many == hashlib on 64 single-block "
+         "messages and blake2b_256 on 0, 1, 127, 128, 129 and 1000 bytes")
     _log(f"hash bounds per instance: keccak_f {KECCAK_OPS} 32-bit "
          f"operations, {KECCAK_BYTES} bytes; sha256_compress {SHA256_OPS} "
-         f"operations, {SHA256_BYTES} bytes; {INT_OPS_PER_S:.4g} "
-         "operations/s, 3.35 TB/s")
+         f"operations, {SHA256_BYTES} bytes; blake2b_compress "
+         f"{BLAKE2B_OPS} operations, {BLAKE2B_BYTES} bytes; "
+         f"{INT_OPS_PER_S:.4g} operations/s, 3.35 TB/s")
 
     entries = {}
     for name, (kernel, plain) in fns.items():
@@ -531,18 +592,32 @@ def check_hash(torch, gl) -> dict:
     return entries
 
 
+def memory_input():
+    """tests/test_prover_pipeline.py's batch: two memory actions."""
+    from zkevm_prover_tpu_torch.executor import BatchActions
+    from zkevm_prover_tpu_torch.prover import ProofInput, PublicInputs
+
+    return ProofInput(
+        publics=PublicInputs(batch_l2_data="0xdead"),
+        actions=BatchActions(memory=[
+            {"addr": 1, "step": 1, "wr": 1, "value": 5},
+            {"addr": 1, "step": 2, "wr": 0, "value": 0}]))
+
+
 def small_proofs(device: str) -> dict:
     """Proof JSON of the toy AIRs, PoseidonG at 2^8, the mixed batch of
     the seven co-processor SMs at 2^9, the small storage batch (storage
     2^9 with its emitted PoseidonG 2^9 and ClimbKey 2^10), the small
-    hash batch (PaddingKK, PaddingSha256, KeccakF, Sha256F) and the small
-    combined batch (Main and its bound co-SMs in one AIR at 2^9), proved
-    on `device`; each card proof must also verify."""
+    hash batch (PaddingKK, PaddingSha256, KeccakF, Sha256F), the small
+    combined batch (Main and its bound co-SMs in one AIR at 2^9) and the
+    memory batch through `Prover`'s request queue, proved on `device`;
+    each card proof must also verify."""
     from zkevm_prover_tpu_torch.executor import (BatchActions, Executor,
                                                  combined)
     from zkevm_prover_tpu_torch.executor.examples import (
         mixed_batch, small_hash_batch, small_rom_batch, small_storage_batch)
     from zkevm_prover_tpu_torch.hashdb import Smt
+    from zkevm_prover_tpu_torch.prover import Prover, ProverRequest
     from zkevm_prover_tpu_torch.stark import examples
     from zkevm_prover_tpu_torch.stark.prover import StarkProver
     from zkevm_prover_tpu_torch.stark.setup import StarkSetup
@@ -598,21 +673,82 @@ def small_proofs(device: str) -> dict:
                                        device=device):
         _fail("the small combined batch does not verify")
     out[f"rom batch combined 2^{rom_batch.n_bits}"] = proof.to_json()
+    prover = Prover(n_bits=9, device=device)
+    uid = prover.submit_request(ProverRequest("genBatchProof",
+                                              memory_input()))
+    bp = prover.wait_for_request(uid, timeout=600)
+    if device == "cuda" and not prover.verify_batch_proof(bp):
+        _fail("the request queue's memory batch does not verify")
+    out["prover queue memory 2^9"] = bp.sm_proofs["memory"][1].to_json()
     return out
 
 
-def start_cpu_proofs(path: str):
-    """The CPU side of the small proofs, in a child process that runs while
-    the card works (it sees no card)."""
+def _cli_path(path: str, name: str) -> str:
+    """A file of the CLI check beside the CPU proofs' file: its input JSON
+    ("cli_input.json") or the output directory of its run on a device
+    ("cli_cuda", "cli_cpu")."""
     import os
 
+    return os.path.join(os.path.dirname(path), name)
+
+
+def start_cpu_proofs(path: str):
+    """The CPU side of the small proofs and of the CLI run, in a child
+    process that runs while the card works (it sees no card); the CLI's
+    input JSON is written first, for both sides."""
+    import os
+
+    with open(_cli_path(path, "cli_input.json"), "w") as f:
+        f.write(memory_input().to_json())
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.Popen([sys.executable, __file__, "--cpu-proofs", path],
                             env=env)
 
 
+def cpu_proofs(path: str) -> None:
+    """The child's work: the small proofs on the CPU into `path`, and the
+    CLI, in this process, on the CPU."""
+    from zkevm_prover_tpu_torch.__main__ import main as cli_main
+
+    with open(path, "w") as f:
+        json.dump(small_proofs("cpu"), f)
+    if cli_main(["--prove", _cli_path(path, "cli_input.json"), "-o",
+                 _cli_path(path, "cli_cpu"), "--device", "cpu"]) != 0:
+        raise RuntimeError("the CLI failed on the CPU")
+
+
+def check_cli(path: str) -> None:
+    """`python -m zkevm_prover_tpu_torch --prove` on the card in a
+    subprocess: its batch_proof.json (publics, counters, proofs) == the CPU
+    child's."""
+    import os
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "zkevm_prover_tpu_torch",
+                          "--prove", _cli_path(path, "cli_input.json"),
+                          "-o", _cli_path(path, "cli_cuda")],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        _fail(f"the CLI on the card exited with {res.returncode}: "
+              f"{res.stderr[-2000:]}")
+    got = {}
+    for device in ("cuda", "cpu"):
+        with open(os.path.join(_cli_path(path, f"cli_{device}"),
+                               "batch_proof.json")) as f:
+            got[device] = json.load(f)
+    if got["cuda"] != got["cpu"]:
+        _fail("the CLI's batch_proof.json on the card != the CPU's")
+    _log(f"CLI --prove on the card (a subprocess, {wall:.1f} s wall): "
+         f"batch_proof.json == the CPU child's; proofs "
+         f"{sorted(got['cuda']['proofs'])}, new batch "
+         f"{got['cuda']['publics']['new_batch_num']}")
+
+
 def check_small_proofs(child, path: str) -> None:
-    """Card proof bytes == the child's CPU proof bytes, for each proof."""
+    """Card proof bytes == the child's CPU proof bytes, for each proof; then
+    the CLI on the card against the child's CLI run."""
     t0 = time.perf_counter()
     card = small_proofs("cuda")
     t1 = time.perf_counter()
@@ -620,7 +756,8 @@ def check_small_proofs(child, path: str) -> None:
         _fail(f"the CPU proofs' process exited with {child.returncode}")
     with open(path) as f:
         cpu = json.load(f)
-    if sorted(cpu) != sorted(card) or len(card) != 4 + 1 + 7 + 3 + 4 + 1:
+    if sorted(cpu) != sorted(card) or \
+            len(card) != 4 + 1 + 7 + 3 + 4 + 1 + 1:
         _fail(f"proved {sorted(card)} on the card, {sorted(cpu)} on the CPU")
     for name, text in card.items():
         if text != cpu[name]:
@@ -628,29 +765,49 @@ def check_small_proofs(child, path: str) -> None:
     _log(f"small proofs ({', '.join(card)}): card proof JSON == CPU proof "
          f"JSON; card {t1 - t0:.1f} s, then {time.perf_counter() - t1:.1f} s "
          "waiting for the CPU")
+    check_cli(path)
 
 
-def _prove_sm(torch, ex, name, actions):
-    """Execute and prove one SM's actions; returns (trace, prover, proof,
-    executor s, prove s, peak GiB)."""
-    from zkevm_prover_tpu_torch.executor import BatchActions
-
-    t0 = time.perf_counter()
-    trace = ex.execute(BatchActions(**{name: actions}))[name]
-    t1 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    prover, proof = ex.prove_traces({name: trace})[name]
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    return (trace, prover, proof, t1 - t0, t2 - t1,
-            torch.cuda.max_memory_allocated() / 2**30)
+# newAccInputHash of `batch_input`'s publics, pinned from the JAX package's
+# `PublicInputs.acc_input_hash` (zkevm_prover_tpu/prover/input.py :89) for
+# the same publics
+BATCH_ACC_INPUT_HASH = ("0x6e9e1118f5e6b65f254cae5858431230"
+                        "e187407f7f155ea6ec46238e7de412c1")
 
 
-def run_batch(torch, pcu, bits: int, arith_bits: int) -> dict:
-    """The co-processor batch at full width under MODE mxu96, proved and
-    verified; returns {name: (trace, prover, proof)} and the launches of
-    each kernel in it."""
-    from zkevm_prover_tpu_torch.executor import Executor, examples
+def batch_input(ex):
+    """The co-processor batch as a `ProofInput`: every ported SM of `ex`
+    filled to its capacity less one group (`examples.full_batch`), under
+    publics from np.random.default_rng(3) (a 512-byte batchL2Data: the
+    checkpoint keeps the publics in its 4 KiB header page). Built in
+    memory: `ProofInput.from_json` reads binary, memory and arith actions
+    only, as in the JAX package."""
+    from zkevm_prover_tpu_torch.executor import BatchActions, examples
+    from zkevm_prover_tpu_torch.prover import ProofInput, PublicInputs
+
+    rng = np.random.default_rng(3)
+    pub = PublicInputs(
+        old_state_root="0x" + rng.bytes(32).hex(),
+        old_acc_input_hash="0x" + rng.bytes(32).hex(), old_batch_num=41,
+        chain_id=1101, fork_id=9, batch_l2_data="0x" + rng.bytes(512).hex(),
+        l1_info_root="0x" + rng.bytes(32).hex(), timestamp_limit=1700000000,
+        sequencer_addr="0x" + rng.bytes(20).hex())
+    return ProofInput(publics=pub,
+                      actions=BatchActions(**examples.full_batch(ex)))
+
+
+def run_batch(torch, pcu, hcu, bits: int, arith_bits: int, path: str):
+    """The co-processor batch at full width under MODE mxu96 through
+    `Prover.gen_batch_proof(inp, save_cm_pols=path)`, then
+    `verify_batch_proof`, the publics and a tampered proof of each SM;
+    returns the prover, the BatchProof, the traces it proved (kept by
+    wrapping its executor's `prove_traces`) and the launches of every kernel
+    in the prove and the verification. Each SM's AIR build and setup, its
+    prove's wall and its peak device memory are read by wrapping the
+    executor's `prover` for the one call."""
+    import os
+
+    from zkevm_prover_tpu_torch.prover import Prover
     from zkevm_prover_tpu_torch.stark.proof import StarkProof
     from zkevm_prover_tpu_torch.stark.verifier import VerifyError, verify
 
@@ -658,43 +815,90 @@ def run_batch(torch, pcu, bits: int, arith_bits: int) -> dict:
              ("binary", "memory", "mem_align", "poseidon_g", "padding_pg",
               "climb_key")}
     sizes["arith"] = arith_bits
-    ex = Executor(n_bits=sizes, device="cuda")
+    prover = Prover(n_bits=sizes, device="cuda")
+    ex = prover.executor
     _log(f"batch sizes (log2 rows): {json.dumps(ex.n_bits)}; binary slice "
          f"{ex.binary_slice_bits()} bits")
     pcu.MODE = "mxu96"
-    for mode in pcu.launches:
-        pcu.launches[mode] = 0
-    out, peak = {}, 0.0
     t_batch = time.perf_counter()
-    batch = examples.full_batch(ex)
-    _log(f"batch actions made: {time.perf_counter() - t_batch:.1f} s")
-    for name in ("binary", "memory", "arith", "mem_align", "poseidon_g",
-                 "padding_pg", "climb_key"):
-        actions = batch[name]
-        trace, prover, proof, t_ex, t_pr, gib = _prove_sm(torch, ex, name,
-                                                          actions)
-        peak = max(peak, gib)
-        out[name] = (trace, prover, proof)
-        n = prover.setup.n
-        _log(f"batch {name} 2^{ex.n_bits[name]} ({len(actions)} actions, "
-             f"{prover.setup.air.n_cm1} committed cols): executor {t_ex:.2f} "
-             f"s, prove {t_pr:.2f} s ({n / t_pr / 1e6:.4f} Mrow/s), peak "
-             f"device memory {gib:.2f} GiB")
-        _log(f"batch {name} phases (s): " + json.dumps(
-            {k: round(v, 4) for k, v in prover.phase_times.items()}))
+    inp = batch_input(ex)
+    _log(f"batch input made: {time.perf_counter() - t_batch:.1f} s")
+    proved, built, walls, peaks = {}, {}, {}, {}
+    prove_traces, make_prover = ex.prove_traces, ex.prover
+
+    def keep(traces):
+        proved.update(traces)
+        return prove_traces(traces)
+
+    def timed_prover(name):
+        if name in built:
+            return make_prover(name)
+        t0 = time.perf_counter()
+        sm_prover = make_prover(name)
+        torch.cuda.synchronize()
+        built[name] = time.perf_counter() - t0
+        prove = sm_prover.prove
+
+        def timed_prove(trace):
+            peaks.setdefault("before the proves",
+                             torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            proof = prove(trace)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t1
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+            return proof
+
+        sm_prover.prove = timed_prove
+        return sm_prover
+
+    ex.prove_traces, ex.prover = keep, timed_prover
+    for counters in (pcu.launches, hcu.launches):
+        for k in counters:
+            counters[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bp = prover.gen_batch_proof(inp, save_cm_pols=path)
     torch.cuda.synchronize()
-    _log(f"batch: {time.perf_counter() - t_batch:.1f} s in all; peak device "
-         f"memory {peak:.2f} GiB; kernel launches in the proofs "
-         f"{json.dumps(pcu.launches)}")
+    wall = time.perf_counter() - t0
+    del ex.prove_traces, ex.prover
+    for sm_prover, _ in bp.sm_proofs.values():
+        del sm_prover.prove
+    peak = max(peaks.values())
+    timers = {k: round(v["total_s"], 3)
+              for k, v in prover.metrics.snapshot().items()}
+    _log(f"batch Prover.gen_batch_proof: {wall:.2f} s on the script's "
+         f"clock; Prover timers (s) {json.dumps(timers)}; checkpoint "
+         f"{os.path.getsize(path) / 2**30:.3f} GiB; peak device memory "
+         f"{peak:.2f} GiB ({peaks['before the proves']:.2f} before the "
+         f"proves); kernel launches in the proofs "
+         f"{json.dumps({**pcu.launches, **hcu.launches})}")
+    for name, (sm_prover, _) in bp.sm_proofs.items():
+        air_s = ex.air_times[name]
+        _log(f"batch {name} 2^{ex.n_bits[name]} "
+             f"({len(getattr(inp.actions, name))} actions, "
+             f"{sm_prover.setup.air.n_cm1} committed cols): executor "
+             f"{ex.execute_times[name]:.2f} s, AIR (host) {air_s:.2f} s, "
+             f"setup {built[name] - air_s:.2f} s, prove {walls[name]:.2f} s "
+             f"({sm_prover.setup.n / walls[name] / 1e6:.4f} Mrow/s; its "
+             f"phases {sum(sm_prover.phase_times.values()):.2f} s), peak "
+             f"device memory {peaks[name]:.2f} GiB")
+        _log(f"batch {name} phases (s): " + json.dumps(
+            {k: round(v, 4) for k, v in sm_prover.phase_times.items()}))
+    _log(f"batch: AIR + setup + prove summed over the SMs "
+         f"{sum(built.values()) + sum(walls.values()):.2f} s of "
+         f"STARK_PROOF_BATCH_PROOF's {timers['STARK_PROOF_BATCH_PROOF']:.2f}"
+         f" s; {time.perf_counter() - t_batch:.1f} s in all")
 
     t0 = time.perf_counter()
-    proofs = {name: (prover, proof) for name, (_, prover, proof) in out.items()}
-    if not ex.verify_all(proofs):
-        _fail("verify_all rejected the batch")
+    if not prover.verify_batch_proof(bp):
+        _fail("verify_batch_proof rejected the batch")
     torch.cuda.synchronize()
     launches = dict(pcu.launches)
-    _log(f"batch verify_all: true ({time.perf_counter() - t0:.2f} s); kernel "
-         f"launches in proofs + verify {json.dumps(launches)}")
+    _log(f"batch verify_batch_proof: true ({time.perf_counter() - t0:.2f} "
+         f"s); kernel launches in proofs + verify "
+         f"{json.dumps({**launches, **hcu.launches})}")
     if launches["merkle"] == 0:
         _fail("the fused Merkle kernel was not launched on the main path")
     if launches["mxu96"] == 0:
@@ -702,23 +906,67 @@ def run_batch(torch, pcu, bits: int, arith_bits: int) -> dict:
     if any(n for mode, n in launches.items() if mode not in ("mxu96",
                                                              "merkle")):
         _fail(f"another mode's kernel ran under MODE mxu96: {launches}")
-    for name, (prover, proof) in proofs.items():
+    old = inp.publics
+    if bp.publics.new_batch_num != old.old_batch_num + 1:
+        _fail(f"batch publics: new batch {bp.publics.new_batch_num}, old "
+              f"{old.old_batch_num}")
+    # the plumbing: gen_batch_proof hands on what PublicInputs computes
+    if bp.publics.new_acc_input_hash != old.acc_input_hash():
+        _fail(f"batch publics: newAccInputHash "
+              f"{bp.publics.new_acc_input_hash} != PublicInputs."
+              f"acc_input_hash() {old.acc_input_hash()}")
+    # the recurrence: the JAX package's value for the same publics
+    if bp.publics.new_acc_input_hash != BATCH_ACC_INPUT_HASH:
+        _fail(f"batch publics: newAccInputHash "
+              f"{bp.publics.new_acc_input_hash} != the JAX package's "
+              f"{BATCH_ACC_INPUT_HASH}")
+    for name, (sm_prover, proof) in bp.sm_proofs.items():
         bad = StarkProof.from_json(proof.to_json())
         bad.fri[0].queries[0][0].values[0] += 1
         try:
-            verify(prover.setup, prover.verkey, bad, device="cuda")
+            verify(sm_prover.setup, sm_prover.verkey, bad, device="cuda")
         except VerifyError:
             continue
         _fail(f"a tampered {name} proof verified")
-    _log(f"batch: a tampered proof of each of the {len(proofs)} SMs rejected")
-    return out, launches
+    _log(f"batch: new batch {bp.publics.new_batch_num} == old + 1, "
+         f"newAccInputHash {bp.publics.new_acc_input_hash} == "
+         "PublicInputs.acc_input_hash() (the entry point's plumbing) == the "
+         "JAX package's pinned value (the recurrence); a tampered proof of "
+         f"each of the {len(bp.sm_proofs)} SMs rejected")
+    return prover, bp, proved, {**launches, **hcu.launches}
 
 
-def run_modes(torch, pcu, trace, prover, proof) -> dict:
-    """mem_align's full-width trace re-proved under every mode, mxu96 first
-    for its steady time; returns each mode's launches in its prove (under
+def check_checkpoint(path: str, proved: dict) -> dict:
+    """`load_commit_pols` of phase 5's checkpoint gives back every SM's
+    trace, equal to the traces proved; returns them (memory-mapped)."""
+    from zkevm_prover_tpu_torch.prover import checkpoint
+
+    t0 = time.perf_counter()
+    traces, hdr = checkpoint.load_commit_pols(path)
+    if sorted(traces) != sorted(proved):
+        _fail(f"checkpoint holds {sorted(traces)}, proved {sorted(proved)}")
+    for name, trace in traces.items():
+        if not np.array_equal(np.asarray(trace), proved[name]):
+            _fail(f"checkpoint: {name}'s trace differs from the proved one")
+    _log(f"checkpoint: load_commit_pols gave back the {len(traces)} proved "
+         f"traces, equal ({time.perf_counter() - t0:.2f} s to load and "
+         f"compare); publics {len(hdr['publics'])} fields, counters "
+         f"{len(hdr['meta']['counters'])}")
+    return traces
+
+
+def run_modes(torch, pcu, prover, bp, traces, path: str) -> dict:
+    """mem_align's full-width trace re-proved under every mode: under mxu96
+    by `gen_batch_proof_from_commit` of a mem_align-only checkpoint (at
+    `path`), under the others by its prover; each proof must equal phase
+    5's byte for byte. Returns each mode's launches in its prove (under
     mxu96, the fused Merkle kernel's)."""
+    from zkevm_prover_tpu_torch.prover import checkpoint
+
+    sm_prover, proof = bp.sm_proofs["mem_align"]
     ref = proof.to_json()
+    checkpoint.save_commit_pols(path, {"mem_align": traces["mem_align"]})
+    trace = np.asarray(traces["mem_align"])
     launches, times = {}, {}
     try:
         for mode in ("mxu96", "1d", "2d", "blocked", "mxu", "mxu24"):
@@ -726,7 +974,11 @@ def run_modes(torch, pcu, trace, prover, proof) -> dict:
             for m in pcu.launches:
                 pcu.launches[m] = 0
             t0 = time.perf_counter()
-            got = prover.prove(trace).to_json()
+            if mode == "mxu96":
+                resumed = prover.gen_batch_proof_from_commit(path)
+                got = resumed.sm_proofs["mem_align"][1].to_json()
+            else:
+                got = sm_prover.prove(trace).to_json()
             torch.cuda.synchronize()
             times[mode] = time.perf_counter() - t0
             # mxu96 commits through the fused kernel, the others chunked
@@ -738,13 +990,16 @@ def run_modes(torch, pcu, trace, prover, proof) -> dict:
                    if m not in (key, mode)):
                 _fail(f"mode {mode}: another kernel ran: {pcu.launches}")
             if got != ref:
-                _fail(f"mode {mode}: mem_align proof differs from mxu96's")
+                _fail(f"mode {mode}: mem_align proof differs from phase "
+                      "5's")
     finally:
         pcu.MODE = "mxu96"
-    _log(f"modes: mem_align 2^{prover.setup.n_bits} proof under every mode "
-         f"== the mxu96 proof; launches {json.dumps(launches)}")
-    _log("modes: steady mem_align prove (s): " + json.dumps(
-        {m: round(t, 3) for m, t in times.items()}))
+    _log(f"modes: mem_align 2^{sm_prover.setup.n_bits} resumed from a "
+         "mem_align-only checkpoint (gen_batch_proof_from_commit, mxu96) "
+         "and re-proved under every other mode == phase 5's proof; "
+         f"launches {json.dumps(launches)}")
+    _log("modes: steady mem_align prove (s; mxu96's with the checkpoint's "
+         "load): " + json.dumps({m: round(t, 3) for m, t in times.items()}))
     return launches
 
 
@@ -804,7 +1059,7 @@ def _rss_gib() -> float:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
 
 
-def run_state_tree(torch, pcu, bits: int):
+def run_state_tree(torch, pcu, hcu, bits: int):
     """The storage batch's pre-state: `examples.state_tree` at 2^12 keys on
     the card against the CPU's plain twin (the same root), then at 2^`bits`
     keys on the card, its permutations through the mxu96 kernel (one launch
@@ -826,8 +1081,9 @@ def run_state_tree(torch, pcu, bits: int):
     _log(f"state tree 2^12 keys: card root == CPU root {small['cpu'].root}")
 
     db = Database()
-    for mode in pcu.launches:
-        pcu.launches[mode] = 0
+    for counters in (pcu.launches, hcu.launches):
+        for k in counters:
+            counters[k] = 0
     rss0 = _rss_gib()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -856,10 +1112,10 @@ def run_state_tree(torch, pcu, bits: int):
          f"{launches['mxu96']} mxu96 launches; host RSS {rss0:.2f} -> "
          f"{_rss_gib():.2f} GiB; Smt.get of 64 present "
          "keys gave their values, of 16 absent keys 0")
-    return smt, tree, launches
+    return smt, tree, {**launches, **hcu.launches}
 
 
-def run_storage_batch(torch, pcu, smt, tree, bits: int) -> dict:
+def run_storage_batch(torch, pcu, hcu, smt, tree, bits: int) -> dict:
     """The storage batch at full width over the state tree: the actions of
     `examples.storage_batch`, closed on the PoseidonG capacity of a
     2^`bits` PoseidonG SM, proved through `Executor.prove_all` with storage
@@ -890,8 +1146,9 @@ def run_storage_batch(torch, pcu, smt, tree, bits: int) -> dict:
          f"{make_s:.2f} s (host Smt.set/get); PoseidonG capacity {cap}")
 
     batch = BatchActions(storage=actions)
-    for mode in pcu.launches:
-        pcu.launches[mode] = 0
+    for counters in (pcu.launches, hcu.launches):
+        for k in counters:
+            counters[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     proofs = ex.prove_all(batch, db=smt.db)
@@ -937,8 +1194,8 @@ def run_storage_batch(torch, pcu, smt, tree, bits: int) -> dict:
         _fail("a tampered storage proof verified")
     _log(f"storage batch verify_all: true ({time.perf_counter() - t0:.2f} "
          f"s); a tampered storage proof rejected; kernel launches in proofs "
-         f"+ verify {json.dumps(launches)}")
-    return launches
+         f"+ verify {json.dumps({**launches, **hcu.launches})}")
+    return {**launches, **hcu.launches}
 
 
 def run_hash_batch(torch, pcu, hcu) -> dict:
@@ -1201,8 +1458,7 @@ def main() -> int:
 
     if args.cpu_proofs:
         torch.set_num_threads(6)
-        with open(args.cpu_proofs, "w") as f:
-            json.dump(small_proofs("cpu"), f)
+        cpu_proofs(args.cpu_proofs)
         return 0
 
     if not torch.cuda.is_available():
@@ -1221,11 +1477,15 @@ def main() -> int:
 
 
 def run(args, torch, child, cpu_path) -> int:
+    import os
+
     from zkevm_prover_tpu_torch import cuda_build
     from zkevm_prover_tpu_torch.ops import goldilocks as gl
     from zkevm_prover_tpu_torch.ops import hash_cuda as hcu
     from zkevm_prover_tpu_torch.ops import poseidon_cuda as pcu
     from zkevm_prover_tpu_torch.ops import poseidon_gl as pg
+
+    tmp_dir = os.path.dirname(cpu_path)   # the checkpoints go here too
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1243,8 +1503,9 @@ def run(args, torch, child, cpu_path) -> int:
     entries["merkle"] = check_merkle(torch, gl, pcu)
     entries.update(check_hash(torch, gl))
     check_ntt(torch, gl)
-    smt, tree, tree_launches = run_state_tree(torch, pcu, TREE_BITS)
-    storage_launches = run_storage_batch(torch, pcu, smt, tree, args.bits)
+    smt, tree, tree_launches = run_state_tree(torch, pcu, hcu, TREE_BITS)
+    storage_launches = run_storage_batch(torch, pcu, hcu, smt, tree,
+                                         args.bits)
     hash_launches = run_hash_batch(torch, pcu, hcu)
     check_small_proofs(child, cpu_path)
     rom_prover, rom_trace, rom_launches, rom_s = run_rom_batch(
@@ -1253,29 +1514,34 @@ def run(args, torch, child, cpu_path) -> int:
                   rom_trace, rom_s)
     del smt, tree, rom_prover, rom_trace
     torch.cuda.empty_cache()
-    batch, main_launches = run_batch(torch, pcu, args.bits, args.arith_bits)
+    ckpt = f"{tmp_dir}/batch.commit"
+    prover, bp, proved, main_launches = run_batch(
+        torch, pcu, hcu, args.bits, args.arith_bits, ckpt)
     # each main path read with the counters zeroed just before it
     paths = {"coprocessor_batch": main_launches, "state_tree": tree_launches,
              "storage_batch": storage_launches, "hash_batch": hash_launches,
              "combined_batch": rom_launches}
-    for kernel in ("mxu96", "merkle", "keccak_f", "sha256_compress"):
+    for kernel in ("mxu96", "merkle", "keccak_f", "sha256_compress",
+                   "blake2b_compress"):
         entries[kernel]["launches_by_path"] = {
-            path: counts.get(kernel, 0) for path, counts in paths.items()}
+            path: counts[kernel] for path, counts in paths.items()}
         entries[kernel]["launches"] = sum(
             entries[kernel]["launches_by_path"].values())
-    trace, prover, proof = batch["mem_align"]
-    for mode, n in run_modes(torch, pcu, trace, prover, proof).items():
+    traces = check_checkpoint(ckpt, proved)
+    del proved
+    for mode, n in run_modes(torch, pcu, prover, bp, traces,
+                             f"{tmp_dir}/mem_align.commit").items():
         if mode != "mxu96":
             entries[mode]["launches"] = n
-    trace, prover, _ = batch["arith"]
-    profile_prove(torch, "arith", prover, trace,
-                  sum(prover.phase_times.values()))
+    arith = bp.sm_proofs["arith"][0]
+    profile_prove(torch, "arith", arith, np.asarray(traces["arith"]),
+                  sum(arith.phase_times.values()))
 
     _log("chip_smoke: done")
     print(json.dumps({"kernels": [entries[m] for m in
                                   ("mxu96", "merkle", "mxu24", "mxu",
                                    "blocked", "1d", "2d", "keccak_f",
-                                   "sha256_compress")]}))
+                                   "sha256_compress", "blake2b_compress")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

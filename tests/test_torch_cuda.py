@@ -405,3 +405,119 @@ def test_small_rom_batch_card_proof_matches_cpu(card):
             assert verify(prover.setup, prover.verkey, proof, device=dev)
         jsons[str(dev)] = proof.to_json()
     assert jsons["cuda"] == jsons["cpu"]
+
+
+def _blake_inputs(h: int, device):
+    """h random (state, words, counter, last) with the counter's edges and
+    both flags, as int64 (u64 bit patterns) and bool tensors."""
+    rng = np.random.default_rng(h + 100)
+    state = rng.integers(0, 1 << 64, (h, 8), dtype=np.uint64)
+    words = rng.integers(0, 1 << 64, (h, 16), dtype=np.uint64)
+    counter = rng.integers(0, 1 << 64, h, dtype=np.uint64)
+    counter[:3] = [0, 128, (1 << 64) - 1][:h]
+    last = rng.integers(0, 2, h).astype(bool)
+    last[:2] = [True, False][:h]
+    return (gl.from_u64(state, device), gl.from_u64(words, device),
+            gl.from_u64(counter, device), torch.as_tensor(last, device=device))
+
+
+@pytest.mark.parametrize("h", HASH_SIZES)
+def test_blake2b_kernel_matches_plain(card, h):
+    from zkevm_prover_tpu_torch.ops import blake
+
+    args = _blake_inputs(h, card)
+    before = dict(hash_cuda.launches)
+    out = blake.blake2b_compress(*args)
+    assert hash_cuda.launches == {**before, "blake2b_compress":
+                                  before["blake2b_compress"] + 1}
+    assert out.shape == (h, 8) and out.is_contiguous()
+    assert torch.equal(out, blake.blake2b_compress_plain(*args))
+
+
+def test_blake2b_kernel_matches_hashlib(card):
+    import hashlib
+
+    from zkevm_prover_tpu_torch.ops import blake
+
+    for n in (0, 1, 127, 128, 129, 1000):
+        data = bytes((7 * i + 3) & 0xFF for i in range(n))
+        before = hash_cuda.launches["blake2b_compress"]
+        assert blake.blake2b_256(data, device=card) == hashlib.blake2b(
+            data, digest_size=32).digest()
+        # one compression per 128-byte block
+        assert hash_cuda.launches["blake2b_compress"] - before == \
+            max(1, -(-n // 128))
+    rng = np.random.default_rng(9)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 129, 64)]
+    assert blake.blake2b_256_many(msgs, device=card) == [
+        hashlib.blake2b(m, digest_size=32).digest() for m in msgs]
+    assert blake.blake2b_256_test(device=card)
+
+
+def test_blake2b_kernel_rejects_what_it_does_not_take(card):
+    state, words, counter, last = _blake_inputs(4, card)
+    before = dict(hash_cuda.launches)
+    with pytest.raises(TypeError, match="torch.bool"):
+        hash_cuda.blake2b_compress(state, words, counter, last.to(torch.int64))
+    with pytest.raises(ValueError, match="one card"):
+        hash_cuda.blake2b_compress(state, words, counter[:3], last[:3])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hash_cuda.blake2b_compress(state, words, counter.cpu(), last)
+    assert hash_cuda.launches == before
+    empty = [x[:0] for x in (state, words, counter, last)]
+    assert hash_cuda.blake2b_compress(*empty).shape == (0, 8)
+    assert hash_cuda.launches == before
+
+
+def _memory_input():
+    """tests/test_prover_pipeline.py's input: two memory actions."""
+    from zkevm_prover_tpu_torch.prover import ProofInput, PublicInputs
+
+    return ProofInput(
+        publics=PublicInputs(batch_l2_data="0xdead"),
+        actions=BatchActions(memory=[
+            {"addr": 1, "step": 1, "wr": 1, "value": 5},
+            {"addr": 1, "step": 2, "wr": 0, "value": 0}]))
+
+
+def test_gen_batch_proof_card_matches_cpu(card, tmp_path):
+    """Prover.gen_batch_proof on the card (checkpoint, resume, the request
+    queue) gives the CPU proof bytes, which tests/test_torch_prover.py
+    holds to the JAX package's."""
+    from zkevm_prover_tpu_torch.prover import Prover, ProverRequest
+
+    cpu = Prover(n_bits=9, device="cpu").gen_batch_proof(_memory_input())
+    want = cpu.sm_proofs["memory"][1].to_json()
+    prover = Prover(n_bits=9, device=card)
+    path = str(tmp_path / "batch.commit")
+    bp = prover.gen_batch_proof(_memory_input(), save_cm_pols=path)
+    assert bp.sm_proofs["memory"][1].to_json() == want
+    assert prover.verify_batch_proof(bp)
+    assert bp.publics == cpu.publics
+    resumed = prover.gen_batch_proof_from_commit(path)
+    assert resumed.sm_proofs["memory"][1].to_json() == want
+    uid = prover.submit_request(ProverRequest("genBatchProof",
+                                              _memory_input()))
+    assert prover.wait_for_request(uid, timeout=300).sm_proofs[
+        "memory"][1].to_json() == want
+
+
+def test_cli_on_card_matches_cpu(card, tmp_path):
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    inp = tmp_path / "input.json"
+    inp.write_text(_memory_input().to_json())
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res = subprocess.run(
+            [sys.executable, "-m", "zkevm_prover_tpu_torch", "--prove",
+             str(inp), "-o", str(tmp_path / dev), "--device", dev],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr
+        out[dev] = json.loads((tmp_path / dev / "batch_proof.json")
+                              .read_text())
+    assert out["cuda"] == out["cpu"]

@@ -57,6 +57,7 @@ def test_port_imports_without_jax():
                 "level_tree", "state64")
     assert {f"zkevm_prover_tpu_torch.hashdb.{m}" for m in hashdb} <= names
     assert {f"zkevm_prover_tpu_torch.hashdb64.{m}" for m in hashdb64} <= names
+    assert {f"zkevm_prover_tpu_torch.{m}" for m in ENTRY_MODULES} <= names
 
 
 # the modules of the Main SM and combined-AIR slice
@@ -93,7 +94,79 @@ def test_slice_module_imports_without_jax_or_jax_package(module):
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+# the modules of the batch-proof entry point's slice
+ENTRY_MODULES = ("utils", "utils.zklog", "utils.timers", "utils.config",
+                 "ops.blake", "prover", "prover.input",
+                 "prover.checkpoint", "prover.witness", "prover.datastream",
+                 "prover.prover", "executor.full_tracer", "__main__")
+
+# the memory batch through gen_batch_proof with a checkpoint, its resume,
+# the CLI, the parsers and Blake2b on the CPU
+_ENTRY_DRIVE = """
+import hashlib, json, os, sys, tempfile
+import torch
+torch.set_num_threads(1)
+from zkevm_prover_tpu_torch.__main__ import main
+from zkevm_prover_tpu_torch.executor import BatchActions
+from zkevm_prover_tpu_torch.ops import blake
+from zkevm_prover_tpu_torch.prover import ProofInput, Prover, PublicInputs
+from zkevm_prover_tpu_torch.prover import checkpoint, datastream, witness
+tmp = tempfile.mkdtemp()
+inp = ProofInput(publics=PublicInputs(batch_l2_data="0xdead"),
+                 actions=BatchActions(memory=[
+                     {"addr": 1, "step": 1, "wr": 1, "value": 5},
+                     {"addr": 1, "step": 2, "wr": 0, "value": 0}]))
+prover = Prover(n_bits=9, device="cpu")
+bp = prover.gen_batch_proof(inp, save_cm_pols=os.path.join(tmp, "cm"))
+assert prover.verify_batch_proof(bp)
+traces, hdr = checkpoint.load_commit_pols(os.path.join(tmp, "cm"))
+assert list(traces) == ["memory"] and hdr["meta"]["counters"]["memory"] == 2
+again = prover.gen_batch_proof_from_commit(os.path.join(tmp, "cm"))
+want = bp.sm_proofs["memory"][1].to_json()
+assert again.sm_proofs["memory"][1].to_json() == want
+with open(os.path.join(tmp, "in.json"), "w") as f:
+    f.write(inp.to_json())
+assert main(["--prove", os.path.join(tmp, "in.json"), "-o", tmp,
+             "--device", "cpu"]) == 0
+with open(os.path.join(tmp, "batch_proof.json")) as f:
+    assert json.load(f)["proofs"]["memory"] == want
+batch = datastream.DataStreamBatch(batch_number=1, fork_id=9, chain_id=1)
+assert datastream.parse(datastream.encode(batch)).blocks == []
+leaf = (b"\\x01\\x07\\x00" + witness._enc_major(0, 5)
+        + witness._enc_major(0, 1))
+assert witness.witness_to_db(leaf)[1] != (0, 0, 0, 0)
+assert blake.blake2b_256(b"abc", "cpu") == hashlib.blake2b(
+    b"abc", digest_size=32).digest()
+assert not any(k == "zkevm_prover_tpu" or k.startswith("zkevm_prover_tpu.")
+               or k.split(".")[0] == "jax"
+               for k in sys.modules if sys.modules[k] is not None)
+"""
+
+
+def test_entry_modules_import_and_run_without_jax_or_jax_package():
+    """Each module of the slice imports, and the entry point runs, in a
+    process where neither `jax` nor `zkevm_prover_tpu` can be imported."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['jaxlib'] = None\n"
+            "sys.modules['zkevm_prover_tpu'] = None\n"
+            f"for m in {ENTRY_MODULES!r}:\n"
+            "    importlib.import_module('zkevm_prover_tpu_torch.' + m)\n"
+            + _ENTRY_DRIVE)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def _file_id(path):
+    """The file's name; under the entry point's packages, whose prover.py
+    shares stark/prover.py's name, its path in the port."""
+    if path.parent.name in ("prover", "utils"):
+        return str(path.relative_to(PORT))
+    return path.name
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=_file_id)
 def test_port_file_imports_no_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

@@ -1,26 +1,33 @@
-// Keccak-f[1600] and the SHA-256 compression over a batch of instances
-// (sm_90a), one library with a plain C interface (ops/hash_cuda.py binds
-// it with ctypes).
+// Keccak-f[1600], the SHA-256 compression and the Blake2b compression over
+// a batch of instances (sm_90a), one library with a plain C interface
+// (ops/hash_cuda.py binds it with ctypes).
 //
-// Replaces two device programs of the JAX package that XLA fuses on the
-// TPU (neither is a pallas_call):
+// Replaces three device programs of the JAX package that XLA fuses on the
+// TPU (none is a pallas_call):
 //  - zkevm_prover_tpu/ops/keccak.py keccak_f: a lax.fori_loop over the 24
 //    rounds on (..., 25) u64 lanes, lane index x + 5y (FIPS-202 order);
 //  - zkevm_prover_tpu/ops/sha256.py sha256_compress: the message schedule
 //    and 64 rounds on (..., 8) u32 states and (..., 16) u32 big-endian
-//    message words, plus the feed-forward addition of the input state.
-// Both are bit-identical to their plain torch twins (keccak.keccak_f_plain,
-// sha256.sha256_compress_plain). Words travel as int64 tensors: a Keccak
-// lane's u64 bit pattern, a SHA-256 word zero-extended (the kernel reads
-// the low 32 bits and writes them back zero-extended).
+//    message words, plus the feed-forward addition of the input state;
+//  - zkevm_prover_tpu/ops/blake.py blake2b_compress: 12 rounds of 8 G
+//    quarter-rounds on the SIGMA schedule over (..., 8) u64 states,
+//    (..., 16) u64 message words, a (...) byte counter and a (...)
+//    last-block flag, then h ^ v[0:8] ^ v[8:16].
+// Each is bit-identical to its plain torch twin (keccak.keccak_f_plain,
+// sha256.sha256_compress_plain, blake.blake2b_compress_plain). Words
+// travel as int64 tensors: a Keccak lane's or a Blake2b word's u64 bit
+// pattern, a SHA-256 word zero-extended (the kernel reads the low 32 bits
+// and writes them back zero-extended); Blake2b's flag as a bool tensor.
 //
 // Design: one thread per instance, its whole state in registers (Keccak 25
 // u64 lanes as 50 32-bit halves; SHA-256 the 8 state words and a rolling
-// 16-word window of the schedule). A block of 128 threads copies its
+// 16-word window of the schedule; Blake2b the 16-word working vector and
+// the 16 message words, each 64-bit word a pair of 32-bit registers). A
+// block of 128 threads copies its
 // instances between device memory and a shared-memory tile with
 // consecutive threads on consecutive words (coalesced), and each thread
 // reads its own row of the tile (the SHA-256 tiles' rows padded to an odd
-// number of words against bank conflicts).
+// number of words against bank conflicts: the SHA-256 and Blake2b tiles).
 //  - Keccak: 64-bit rotations as two funnel shifts (SHF), theta's five-way
 //    parity, its D application and chi each one LOP3 per 32-bit half: 180
 //    32-bit operations per round, 4,320 per permutation. The rounds run in
@@ -28,11 +35,20 @@
 //    constant memory).
 //  - SHA-256: rotations as one funnel shift, Ch and Maj one LOP3 each, the
 //    Sigma and sigma sums one LOP3 each; the 64 rounds fully unrolled.
+//  - Blake2b: rotations by 32 a swap of the halves (no instruction), by 24
+//    and 16 one byte permute (PRMT) per half, by 63 one funnel shift per
+//    half; XORs one LOP3 per half; the 64-bit sums add-with-carry pairs
+//    (IADD3 and IADD3.X, three operands each). The 12 rounds are unrolled
+//    at compile time, each a template on its round number whose SIGMA row
+//    is a compile-time constant: every message word is then a register
+//    named by a constant. A SIGMA table in constant memory would index the
+//    message words at run time, which puts them in local memory.
 //
-// What bounds them on the H100: 32-bit integer issue (LOP3, SHF, IADD3).
-// A Keccak-f permutation is 4,320 such operations against 400 bytes of
-// device memory, a SHA-256 compression 1,384 against 256 bytes
-// (chip_smoke.keccak_bound / sha256_bound).
+// What bounds them on the H100: 32-bit integer issue (LOP3, SHF, PRMT,
+// IADD3). A Keccak-f permutation is 4,320 such operations against 400
+// bytes of device memory, a SHA-256 compression 1,384 against 256 bytes, a
+// Blake2b compression 2,134 against 265 bytes (chip_smoke.keccak_bound /
+// sha256_bound / blake2b_bound).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,6 +62,10 @@ constexpr int SHA_WORDS = 16;     // SHA-256 message words per block
 // shared tile rows padded to an odd word count
 constexpr int SHA_STATE_ROW = SHA_STATE + 1;
 constexpr int SHA_WORDS_ROW = SHA_WORDS + 1;
+constexpr int B2_STATE = 8;       // Blake2b state words
+constexpr int B2_WORDS = 16;      // Blake2b message words per block
+constexpr int B2_STATE_ROW = B2_STATE + 1;
+constexpr int B2_WORDS_ROW = B2_WORDS + 1;
 
 __constant__ uint64_t KECCAK_RC[24] = {
     0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
@@ -69,6 +89,11 @@ __constant__ uint32_t SHA_K[64] = {
     0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
     0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
     0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2};
+
+__constant__ uint64_t BLAKE2B_IV[B2_STATE] = {
+    0x6A09E667F3BCC908ull, 0xBB67AE8584CAA73Bull, 0x3C6EF372FE94F82Bull,
+    0xA54FF53A5F1D36F1ull, 0x510E527FADE682D1ull, 0x9B05688C2B3E6C1Full,
+    0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull};
 
 // LOP3 truth tables on the operand tables a = 0xF0, b = 0xCC, c = 0xAA
 constexpr int LUT_XOR3 = 0x96;   // a ^ b ^ c
@@ -281,6 +306,118 @@ sha256_compress_kernel(const uint64_t* __restrict__ state,
   }
 }
 
+// Blake2b's SIGMA row r (0..9): message slot i of the round in nibble i
+__host__ __device__ constexpr uint64_t blake2b_sigma(int r) {
+  return r == 0   ? 0xFEDCBA9876543210ull
+         : r == 1 ? 0x357B20C16DF984AEull
+         : r == 2 ? 0x491763EADF250C8Bull
+         : r == 3 ? 0x8F04A562EBCD1397ull
+         : r == 4 ? 0xD386CB1EFA427509ull
+         : r == 5 ? 0x91EF57D438B0A6C2ull
+         : r == 6 ? 0xB8293670A4DEF15Cull
+         : r == 7 ? 0xA2684F05931CE7BDull
+         : r == 8 ? 0x5A417D2C803B9EF6ull
+                  : 0x0DC3E9BF5167482Aull;
+}
+
+__device__ __forceinline__ uint64_t swap_halves(uint64_t v) {
+  return join(hi32(v), lo32(v));
+}
+
+// rotate right by a whole number of bytes: one PRMT per half, each picking
+// its four bytes of the word (bytes 0-3 the low half, 4-7 the high)
+template <unsigned LO_BYTES, unsigned HI_BYTES>
+__device__ __forceinline__ uint64_t byte_rotr64(uint64_t v) {
+  const uint32_t lo = lo32(v), hi = hi32(v);
+  return join(__byte_perm(lo, hi, LO_BYTES), __byte_perm(lo, hi, HI_BYTES));
+}
+
+template <int A, int B, int C, int D>
+__device__ __forceinline__ void blake2b_g(uint64_t (&v)[16], uint64_t x,
+                                          uint64_t y) {
+  v[A] = v[A] + v[B] + x;
+  v[D] = swap_halves(v[D] ^ v[A]);              // rotr 32
+  v[C] = v[C] + v[D];
+  v[B] = byte_rotr64<0x6543, 0x2107>(v[B] ^ v[C]);  // rotr 24
+  v[A] = v[A] + v[B] + y;
+  v[D] = byte_rotr64<0x5432, 0x1076>(v[D] ^ v[A]);  // rotr 16
+  v[C] = v[C] + v[D];
+  v[B] = rotl64<1>(v[B] ^ v[C]);                // rotr 63
+}
+
+template <int R>
+__device__ __forceinline__ void blake2b_round(uint64_t (&v)[16],
+                                              const uint64_t (&m)[16]) {
+  constexpr uint64_t s = blake2b_sigma(R % 10);
+  blake2b_g<0, 4, 8, 12>(v, m[s & 15], m[(s >> 4) & 15]);
+  blake2b_g<1, 5, 9, 13>(v, m[(s >> 8) & 15], m[(s >> 12) & 15]);
+  blake2b_g<2, 6, 10, 14>(v, m[(s >> 16) & 15], m[(s >> 20) & 15]);
+  blake2b_g<3, 7, 11, 15>(v, m[(s >> 24) & 15], m[(s >> 28) & 15]);
+  blake2b_g<0, 5, 10, 15>(v, m[(s >> 32) & 15], m[(s >> 36) & 15]);
+  blake2b_g<1, 6, 11, 12>(v, m[(s >> 40) & 15], m[(s >> 44) & 15]);
+  blake2b_g<2, 7, 8, 13>(v, m[(s >> 48) & 15], m[(s >> 52) & 15]);
+  blake2b_g<3, 4, 9, 14>(v, m[(s >> 56) & 15], m[(s >> 60) & 15]);
+}
+
+__global__ void __launch_bounds__(THREADS)
+blake2b_compress_kernel(const uint64_t* __restrict__ state,
+                        const uint64_t* __restrict__ words,
+                        const uint64_t* __restrict__ counter,
+                        const uint8_t* __restrict__ last,
+                        uint64_t* __restrict__ out, int64_t n) {
+  __shared__ uint64_t st_tile[THREADS * B2_STATE_ROW];
+  __shared__ uint64_t w_tile[THREADS * B2_WORDS_ROW];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * THREADS;
+  const int count = block_count(n, base);
+  const uint64_t* st_src = state + base * B2_STATE;
+  const uint64_t* w_src = words + base * B2_WORDS;
+  for (int i = threadIdx.x; i < count * B2_STATE; i += THREADS) {
+    st_tile[i / B2_STATE * B2_STATE_ROW + i % B2_STATE] = st_src[i];
+  }
+  for (int i = threadIdx.x; i < count * B2_WORDS; i += THREADS) {
+    w_tile[i / B2_WORDS * B2_WORDS_ROW + i % B2_WORDS] = w_src[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < count) {
+    uint64_t h[B2_STATE], m[B2_WORDS], v[16];
+#pragma unroll
+    for (int k = 0; k < B2_STATE; ++k) {
+      h[k] = st_tile[threadIdx.x * B2_STATE_ROW + k];
+      v[k] = h[k];
+      v[k + B2_STATE] = BLAKE2B_IV[k];
+    }
+#pragma unroll
+    for (int k = 0; k < B2_WORDS; ++k) {
+      m[k] = w_tile[threadIdx.x * B2_WORDS_ROW + k];
+    }
+    const int64_t i = base + threadIdx.x;
+    v[12] ^= counter[i];
+    v[14] ^= 0ull - static_cast<uint64_t>(last[i] != 0);
+    blake2b_round<0>(v, m);
+    blake2b_round<1>(v, m);
+    blake2b_round<2>(v, m);
+    blake2b_round<3>(v, m);
+    blake2b_round<4>(v, m);
+    blake2b_round<5>(v, m);
+    blake2b_round<6>(v, m);
+    blake2b_round<7>(v, m);
+    blake2b_round<8>(v, m);
+    blake2b_round<9>(v, m);
+    blake2b_round<10>(v, m);
+    blake2b_round<11>(v, m);
+#pragma unroll
+    for (int k = 0; k < B2_STATE; ++k) {
+      st_tile[threadIdx.x * B2_STATE_ROW + k] =
+          lop3_64<LUT_XOR3>(h[k], v[k], v[k + B2_STATE]);
+    }
+  }
+  __syncthreads();
+  uint64_t* dst = out + base * B2_STATE;
+  for (int i = threadIdx.x; i < count * B2_STATE; i += THREADS) {
+    dst[i] = st_tile[i / B2_STATE * B2_STATE_ROW + i % B2_STATE];
+  }
+}
+
 unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + THREADS - 1) / THREADS);
 }
@@ -307,5 +444,20 @@ extern "C" int hash_sha256_compress(const void* state, const void* words,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(state), static_cast<const uint64_t*>(words),
       static_cast<uint64_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (n, 8) state words, (n, 16) message words and (n,) byte counters (u64 bit
+// patterns in int64s) and (n,) last-block flags (bool bytes) in, the (n, 8)
+// compressed states out; returns the cudaError of the launch.
+extern "C" int hash_blake2b_compress(const void* state, const void* words,
+                                     const void* counter, const void* last,
+                                     void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  blake2b_compress_kernel<<<blocks_for(n), THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(state), static_cast<const uint64_t*>(words),
+      static_cast<const uint64_t*>(counter),
+      static_cast<const uint8_t*>(last), static_cast<uint64_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,8 @@ BUILD = PKG / "build"
 
 # kernel library name -> its source under csrc/ (poseidon_gl.cu includes
 # the 2d, mxu, mxu24, blocked and 1d kernels: one translation unit, one
-# constant set; hash.cu holds Keccak-f and the SHA-256 compression)
+# constant set; hash.cu holds Keccak-f and the SHA-256 and Blake2b
+# compressions)
 KERNELS = {"poseidon_gl": "poseidon_gl.cu", "hash": "hash.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

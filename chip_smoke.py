@@ -67,8 +67,9 @@ Phases (any failure exits nonzero; no phase catches and continues):
     zeroed just before and read just after: the fused Merkle kernel,
     mxu96, sha256_compress and keccak_f must have run, and no other
     Poseidon mode;
- 4e. small proofs on the card against the port's CPU proofs (made by a
-    child process from the start), byte for byte: the four toy AIRs,
+ 4e. (run last, after phase 6, so that the CPU child's proofs overlap the
+    card's phases) small proofs on the card against the port's CPU proofs
+    (made by a child process from the start), byte for byte: the four toy AIRs,
     PoseidonG at 2^8, the mixed batch of the seven co-processor SMs at 2^9
     through `Executor.prove_all`, the small storage batch (storage 2^9 with
     its emitted PoseidonG 2^9 and ClimbKey 2^10,
@@ -83,7 +84,11 @@ Phases (any failure exits nonzero; no phase catches and continues):
     "genBatchProof", ...))`, `wait_for_request`); then the CLI,
     `python -m zkevm_prover_tpu_torch --prove` of that batch's input JSON
     on the card in a subprocess, whose batch_proof.json must equal the
-    child's CLI run on the CPU;
+    child's CLI run on the CPU; and the recursion slice's small proofs:
+    the Fibonacci AIR under BN128 commitments, `Prover.compress_proof` of
+    the memory batch (its SM re-proved under BN128) and the Fibonacci
+    proof's recursive1 wrap at 2^13 (`stark.recursive.RecursiveProver`),
+    each card == CPU, byte for byte, and each verified on the card;
  5b. the combined batch at full width: `executor.examples.rom_batch` at
     2^`ROM_BITS` (17) over the 2^20-key tree, its ROM at the fork-9
     e2e vector's per-step op rates, closed on the scarcest bound SM;
@@ -99,10 +104,26 @@ Phases (any failure exits nonzero; no phase catches and continues):
     out of the proof equal the executor's old and new state roots.
     Counters zeroed just before the prove and read after `verify`: the
     fused Merkle kernel and mxu96 must have run, and no other mode's
-    kernel. Then a re-prove of it under torch.profiler, as in phase 7,
-    beside its first prove's time;
- 5. the co-processor batch at 2^`--bits` (19; 2^20 until the combined
-    batch joined, cut to keep the run inside its time limit) under
+    kernel;
+ 5c. the recursion over it (`run_recursion`): batch B, the generator's
+    next ROM (seed `ROM_SEED` + 1) over the state batch A (phase 5b's)
+    left, executed and proved under torch.profiler (`profile_prove`: device
+    busy time, idle share, beside A's first prove) and verified, its
+    publics chained on A's; then `Prover(device="cuda")`:
+    `wrap_batch_recursive` of A and of B (recursive1, its circuit at the
+    smallest power of two that holds it, `gl_circuit.rows_needed`) and
+    `aggregate_recursive` of the two nodes (recursive2, the publics
+    chained in the circuit); `verify_recursive` true for both r1 nodes
+    and the r2 root, a tampered r1 and a tampered r2 proof rejected, the
+    reversed pair raising ValueError. Logged: each circuit's gates, hash
+    claims, publics and rows; the host seconds of synthesis, compile_air,
+    setup and trace; each outer prove's seconds, phases and peak device
+    memory; the proof sizes. Counters zeroed before the first wrap, read
+    after the last verify: the fused Merkle kernel and mxu96 must have
+    run, and no other mode's kernel;
+ 5. the co-processor batch at 2^`--bits` (18 since the recursion joined,
+    19 before, 20 until the combined batch joined, each cut to keep the
+    run inside its time limit; arith at 2^`--arith-bits`, 19) under
     `poseidon_cuda.MODE = "mxu96"` — every ported SM filled to its capacity
     less one group (`executor.examples.full_batch`) in a `ProofInput`,
     executed, checkpointed and proved through the entry point,
@@ -127,14 +148,11 @@ Phases (any failure exits nonzero; no phase catches and continues):
     Merkle kernel) and re-proved under every other mode (through that
     mode's permutation and never the fused kernel), counters zeroed before
     and read after each; every proof must equal phase 5's byte for byte;
- 7. a re-prove of arith (the widest AIR, its trace from the checkpoint)
-    under torch.profiler (device busy time, idle share, the Poseidon
-    kernels' share, the top device ops), beside its phase-5 prove's time,
-    its first;
- 8. a kernels line (JSON: each mode's kernel, the fused Merkle kernel and
+ 7. a kernels line (JSON: each mode's kernel, the fused Merkle kernel and
     the three hash kernels, its launches on the main paths, summed and by
     path (the co-processor batch, the state tree, the storage batch, the
-    hash batch, the combined batch; Blake2b's are 0 on every path, since
+    hash batch, the combined batch, the recursion; Blake2b's are 0 on
+    every path, since
     nothing calls it outside its checks), its time, its bound and its
     plain version's time) and a final line {"ok": true, "device": {...}}.
 
@@ -680,6 +698,59 @@ def small_proofs(device: str) -> dict:
     if device == "cuda" and not prover.verify_batch_proof(bp):
         _fail("the request queue's memory batch does not verify")
     out["prover queue memory 2^9"] = bp.sm_proofs["memory"][1].to_json()
+    out.update(small_recursion_proofs(device, prover, bp))
+    return out
+
+
+def small_recursion_proofs(device: str, prover, bp) -> dict:
+    """The recursion slice's small proofs on `device`: the Fibonacci AIR
+    under BN128 commitments (the JAX stage test's recursiveF shape),
+    `compress_proof` of the request queue's memory batch `bp` (its SM
+    re-proved under BN128) and the Fibonacci proof's recursive1 wrap at
+    2^13 (the JAX recursion test's sizes); each card proof must verify,
+    and each one's host seconds are logged."""
+    from zkevm_prover_tpu_torch.stark import examples
+    from zkevm_prover_tpu_torch.stark.prover import StarkProver
+    from zkevm_prover_tpu_torch.stark.recursive import RecursiveProver
+    from zkevm_prover_tpu_torch.stark.setup import StarkSetup
+    from zkevm_prover_tpu_torch.stark.verifier import verify
+
+    out, secs = {}, {}
+    air, trace = examples.fib_air_trace()
+    t0 = time.perf_counter()
+    setup = StarkSetup(air, n_queries=4, fri_fold_bits=2, hash_type="BN128")
+    bn = StarkProver(setup, device=device)
+    proof = bn.prove(trace)
+    secs["bn128 fib 2^6"] = time.perf_counter() - t0
+    if device == "cuda" and not verify(setup, bn.verkey, proof,
+                                       device=device):
+        _fail("the BN128 Fibonacci proof does not verify")
+    out["bn128 fib 2^6"] = proof.to_json()
+    t0 = time.perf_counter()
+    compressed = prover.compress_proof(bp)
+    secs["compress memory 2^9"] = time.perf_counter() - t0
+    for name, (pv, proof) in compressed.items():
+        if proof.hash_type != "BN128":
+            _fail(f"compress_proof: {name} is a {proof.hash_type} proof")
+        if device == "cuda" and not verify(pv.setup, pv.verkey, proof,
+                                           device=device):
+            _fail(f"compress_proof: {name}'s BN128 proof does not verify")
+        out[f"compress {name} 2^9"] = proof.to_json()
+    air, trace = examples.fib_air_trace()
+    setup = StarkSetup(air, n_queries=4, fri_fold_bits=2)
+    inner = StarkProver(setup, device=device)
+    inner_proof = inner.prove(trace)
+    t0 = time.perf_counter()
+    rp = RecursiveProver(setup, n_bits=13, n_queries=4, device=device)
+    rec = rp.prove_one(inner.verkey, inner_proof)
+    secs["recursive1 fib 2^13"] = time.perf_counter() - t0
+    opv = rp.outer_prover
+    if device == "cuda" and not verify(opv.setup, opv.verkey, rec.proof,
+                                       device=device):
+        _fail("the Fibonacci recursive1 proof does not verify")
+    out["recursive1 fib 2^13"] = rec.proof.to_json()
+    _log(f"small recursion proofs on {device} (host s): "
+         + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     return out
 
 
@@ -757,7 +828,7 @@ def check_small_proofs(child, path: str) -> None:
     with open(path) as f:
         cpu = json.load(f)
     if sorted(cpu) != sorted(card) or \
-            len(card) != 4 + 1 + 7 + 3 + 4 + 1 + 1:
+            len(card) != 4 + 1 + 7 + 3 + 4 + 1 + 1 + 3:
         _fail(f"proved {sorted(card)} on the card, {sorted(cpu)} on the CPU")
     for name, text in card.items():
         if text != cpu[name]:
@@ -830,9 +901,9 @@ def run_batch(torch, pcu, hcu, bits: int, arith_bits: int, path: str):
         proved.update(traces)
         return prove_traces(traces)
 
-    def timed_prover(name):
-        if name in built:
-            return make_prover(name)
+    def timed_prover(name, hash_type="GL"):
+        if name in built or hash_type != "GL":
+            return make_prover(name, hash_type)
         t0 = time.perf_counter()
         sm_prover = make_prover(name)
         torch.cuda.synchronize()
@@ -1003,11 +1074,11 @@ def run_modes(torch, pcu, prover, bp, traces, path: str) -> dict:
     return launches
 
 
-def profile_prove(torch, name, prover, trace, first_s: float) -> None:
-    """A re-prove of the trace under torch.profiler, logged beside its
-    first prove's seconds `first_s`: device busy time, the Poseidon
+def profile_prove(torch, name, prover, trace, first_s: float):
+    """A prove of the trace under torch.profiler, logged beside the first
+    prove's seconds `first_s` of its AIR: device busy time, the Poseidon
     kernels' share of it, the device's idle share of the profiled wall
-    time, and the top device ops."""
+    time, and the top device ops. Returns the proof and the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1015,7 +1086,7 @@ def profile_prove(torch, name, prover, trace, first_s: float) -> None:
     # about a million kernels, and key_averages() takes ~0.3 ms per event
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prover.prove(trace)
+        proof = prover.prove(trace)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict = {}
@@ -1040,6 +1111,7 @@ def profile_prove(torch, name, prover, trace, first_s: float) -> None:
          f"({100 * pos_s / busy_s:.1f} % of busy)")
     _log(f"{name} top device time (s): " + json.dumps(
         [[k, round(v / 1e9, 4)] for k, v in top]))
+    return proof, wall
 
 
 def _device_seconds(prof) -> float:
@@ -1313,9 +1385,9 @@ def run_rom_batch(torch, pcu, hcu, smt, tree, bits: int):
     and proved in one STARK over `build_batch_air(rom, bits,
     include=default_include(bits))`, then `verify`; a tampered proof must
     be rejected, a cross-SM forgery flagged on the card, and the publics
-    must carry the executor's state roots. Returns the prover, the stacked
-    trace, the launches of every kernel in the prove and `verify`, and the
-    prove's seconds."""
+    must carry the executor's state roots. Returns the batch, the
+    executor's result, the prover, its proof, the launches of every kernel
+    in the prove and `verify`, and the prove's seconds."""
     from zkevm_prover_tpu_torch.executor import combined, examples
     from zkevm_prover_tpu_torch.executor.sm import main_sm, memory
     from zkevm_prover_tpu_torch.stark.proof import StarkProof
@@ -1439,13 +1511,188 @@ def run_rom_batch(torch, pcu, hcu, smt, tree, bits: int):
          f"{flagged}, the Main-Memory permutation's (permutation {pi}) "
          f"({time.perf_counter() - t0:.2f} s for the two "
          "checks)")
-    del mem_prover, traces, forged
-    return prover, stacked, launches, prove_s
+    del mem_prover, traces, forged, stacked
+    return batch, res, prover, proof, launches, prove_s
+
+
+# the JAX package's domain of the recursion's outer circuits
+# (`Prover.wrap_batch_recursive`, `aggregate_recursive`); phase 5c gives
+# them rec_bits=None instead, the smallest power of two that holds each
+REC_DEFAULT_BITS = 18
+
+
+def _chain_publics(proof):
+    """A combined batch proof's chaining publics, read out of the proof
+    as `Prover` reads them (the reference layout, prover.cpp:494-560)."""
+    from zkevm_prover_tpu_torch.prover import PublicInputs
+    from zkevm_prover_tpu_torch.prover.prover import _fea_publics_hex
+
+    pv = [int(x) for x in proof.publics]
+    return PublicInputs(
+        old_state_root=_fea_publics_hex(pv[0:8]),
+        old_acc_input_hash=_fea_publics_hex(pv[8:16]),
+        old_batch_num=pv[16], chain_id=pv[17], fork_id=pv[18],
+        new_state_root=_fea_publics_hex(pv[19:27]),
+        new_acc_input_hash=_fea_publics_hex(pv[27:35]),
+        new_local_exit_root=_fea_publics_hex(pv[35:43]),
+        new_batch_num=pv[43])
+
+
+def _log_outer(what: str, rp, wall: float, peak: float, node) -> None:
+    """One outer prove of the recursion: the circuit's shape and domain,
+    the host seconds of each step, the prove's phases, the peak and the
+    proof's size."""
+    pv = rp.outer_prover
+    _log(f"{what} at 2^{rp.n_bits}: {wall:.2f} s in all; circuit "
+         f"{json.dumps(rp.stats)} (the JAX default domain "
+         f"2^{REC_DEFAULT_BITS}); host s " + json.dumps(
+             {k: round(v, 2) for k, v in rp.times.items()})
+         + f"; peak device memory {peak:.2f} GiB; outer AIR "
+         f"{pv.setup.air.n_cm1} committed / {len(pv.setup.air.const_names)}"
+         f" constant cols; proof {len(node.proof.to_json())} bytes of JSON")
+    _log(f"{what} phases (s): " + json.dumps(
+        {k: round(v, 4) for k, v in pv.phase_times.items()}))
+
+
+def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
+                  proof_a, first_s: float) -> dict:
+    """Phase 5c, the recursion over the full-width combined batch: batch A
+    is phase 5b's proof; batch B is the generator's next ROM
+    (`rom_batch(bits, smt, tree at A's new root, ROM_SEED + 1)`) over the
+    state A left, proved under torch.profiler (its idle share) and
+    verified. Each is wrapped by `Prover(device="cuda").
+    wrap_batch_recursive` (recursive1), the two nodes joined by
+    `aggregate_recursive` (recursive2, the publics chained in the
+    circuit); `verify_recursive` must accept both r1 nodes and the r2
+    root, reject a tampered r1 and r2 proof, and the reversed pair must
+    raise ValueError. Logs each circuit's shape, the host seconds of its
+    synthesis, compile_air and setup, each outer prove's seconds, phases
+    and peak device memory, and the proof sizes. Counters zeroed before
+    the first wrap, read after the last verify: the fused Merkle kernel
+    and mxu96 must have run, and no other mode's kernel. Returns them."""
+    from zkevm_prover_tpu_torch.executor import combined, examples
+    from zkevm_prover_tpu_torch.prover import Prover
+    from zkevm_prover_tpu_torch.prover.prover import BatchProof
+    from zkevm_prover_tpu_torch.stark.proof import StarkProof
+    from zkevm_prover_tpu_torch.stark.prover import StarkProver
+    from zkevm_prover_tpu_torch.stark.setup import StarkSetup
+    from zkevm_prover_tpu_torch.stark.verifier import VerifyError, verify
+
+    import dataclasses
+
+    bits = batch_a.n_bits
+    pcu.MODE = "mxu96"
+    post = dataclasses.replace(
+        tree, root=tuple(int(v) for v in res_a.new_state_root))
+    t0 = time.perf_counter()
+    batch_b = examples.rom_batch(bits, smt, post, ROM_SEED + 1)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_b, traces = combined.execute_batch(
+        batch_b.rom, bits, input=batch_b.input, smt=smt,
+        include=batch_b.include, device="cuda")
+    exec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    air_b = combined.build_batch_air(batch_b.rom, bits,
+                                     include=batch_b.include)
+    prover_b = StarkProver(StarkSetup(air_b, n_queries=8, fri_fold_bits=2),
+                           device="cuda")
+    setup_s = time.perf_counter() - t0
+    if prover_b.setup.describe() != prover_a.setup.describe() or \
+            len(air_b.constraints) != len(prover_a.setup.air.constraints):
+        _fail("rom batch B: its AIR's shape differs from batch A's")
+    stacked = air_b.stack_traces(traces)
+    del traces
+    _log(f"rom batch B 2^{bits}: a ROM of {len(batch_b.rom)} lines over "
+         f"batch A's post-state made in {gen_s:.2f} s, closed by "
+         f"{batch_b.closed_by}, ops {json.dumps(batch_b.ops)}; "
+         f"execute_batch {exec_s:.2f} s, AIR + setup {setup_s:.2f} s "
+         "(host); the same AIR shape as batch A")
+    proof_b, _ = profile_prove(torch, f"combined batch B 2^{bits}",
+                               prover_b, stacked, first_s)
+    del stacked
+    if not verify(prover_b.setup, prover_b.verkey, proof_b, device="cuda"):
+        _fail("verify rejected the combined batch B")
+    bp_a = BatchProof(publics=_chain_publics(proof_a),
+                      sm_proofs={"batch": (prover_a, proof_a)},
+                      counters=dict(res_a.counters))
+    bp_b = BatchProof(publics=_chain_publics(proof_b),
+                      sm_proofs={"batch": (prover_b, proof_b)},
+                      counters=dict(res_b.counters))
+    a, b = bp_a.publics, bp_b.publics
+    if (a.new_state_root, a.new_acc_input_hash, a.new_batch_num) != \
+            (b.old_state_root, b.old_acc_input_hash, b.old_batch_num):
+        _fail(f"rom batch B does not chain on A: {a} / {b}")
+    if b.new_state_root == b.old_state_root:
+        _fail("rom batch B wrote no storage")
+    _log(f"rom batch B verifies and chains on A: A {a.old_state_root} -> "
+         f"{a.new_state_root}, B -> {b.new_state_root}")
+
+    prover = Prover(device="cuda")
+    for counters in (pcu.launches, hcu.launches):
+        for k in counters:
+            counters[k] = 0
+    nodes = []
+    for name, bp in (("A", bp_a), ("B", bp_b)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        nodes.append(prover.wrap_batch_recursive(bp, rec_bits=None))
+        torch.cuda.synchronize()
+        _log_outer(f"recursive1 of batch {name}", prover._r1,
+                   time.perf_counter() - t0,
+                   torch.cuda.max_memory_allocated() / 2**30, nodes[-1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    root = prover.aggregate_recursive(nodes, rec_bits=None)
+    torch.cuda.synchronize()
+    _log_outer("recursive2 join of A and B", prover._r2,
+               time.perf_counter() - t0,
+               torch.cuda.max_memory_allocated() / 2**30, root)
+    _log("recursion Prover timers: " + json.dumps(
+        {k: v for k, v in prover.metrics.snapshot().items()
+         if "RECURSIVE" in k}, default=str))
+
+    t0 = time.perf_counter()
+    for node in (*nodes, root):
+        if not prover.verify_recursive(node):
+            _fail(f"verify_recursive rejected the {node.kind} node")
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    launches = {**pcu.launches, **hcu.launches}
+    _log(f"recursion: verify_recursive true for both r1 nodes and the r2 "
+         f"root ({verify_s:.2f} s); root publics old root "
+         f"{root.publics.old_state_root} -> new {root.publics.new_state_root}"
+         f"; kernel launches {json.dumps(launches)}")
+    if launches["merkle"] == 0 or launches["mxu96"] == 0:
+        _fail(f"recursion: a kernel of the path did not run: {launches}")
+    if any(launches[mode] for mode in pcu.MODES if mode != "mxu96"):
+        _fail(f"recursion: another mode's kernel ran: {launches}")
+
+    for node in (nodes[0], root):
+        bad = StarkProof.from_json(node.proof.to_json())
+        bad.fri[0].queries[0][0].values[0] += 1
+        try:
+            ok = prover.verify_recursive(dataclasses.replace(node, proof=bad))
+        except VerifyError:
+            ok = False
+        if ok:
+            _fail(f"a tampered {node.kind} proof verified")
+    try:
+        prover.aggregate_recursive(nodes[::-1])
+    except ValueError as e:
+        broken = str(e)
+    else:
+        _fail("aggregate_recursive joined a pair that does not chain")
+    _log(f"recursion: a tampered r1 and a tampered r2 proof rejected; the "
+         f"reversed pair raised ValueError ({broken})")
+    # the Prover's request thread keeps it alive: drop its outer circuits
+    prover._r1 = prover._r2 = None
+    return launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bits", type=int, default=19,
+    ap.add_argument("--bits", type=int, default=18,
                     help="log2 rows of every SM but arith in the "
                          "co-processor and storage batches (reference: 23)")
     ap.add_argument("--arith-bits", type=int, default=19,
@@ -1457,7 +1704,7 @@ def main() -> int:
     import torch
 
     if args.cpu_proofs:
-        torch.set_num_threads(6)
+        torch.set_num_threads(5)
         cpu_proofs(args.cpu_proofs)
         return 0
 
@@ -1507,12 +1754,11 @@ def run(args, torch, child, cpu_path) -> int:
     storage_launches = run_storage_batch(torch, pcu, hcu, smt, tree,
                                          args.bits)
     hash_launches = run_hash_batch(torch, pcu, hcu)
-    check_small_proofs(child, cpu_path)
-    rom_prover, rom_trace, rom_launches, rom_s = run_rom_batch(
-        torch, pcu, hcu, smt, tree, ROM_BITS)
-    profile_prove(torch, f"combined batch 2^{ROM_BITS}", rom_prover,
-                  rom_trace, rom_s)
-    del smt, tree, rom_prover, rom_trace
+    batch_a, res_a, rom_prover, rom_proof, rom_launches, rom_s = \
+        run_rom_batch(torch, pcu, hcu, smt, tree, ROM_BITS)
+    rec_launches = run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a,
+                                 rom_prover, rom_proof, rom_s)
+    del smt, tree, rom_prover, rom_proof, batch_a, res_a
     torch.cuda.empty_cache()
     ckpt = f"{tmp_dir}/batch.commit"
     prover, bp, proved, main_launches = run_batch(
@@ -1520,7 +1766,7 @@ def run(args, torch, child, cpu_path) -> int:
     # each main path read with the counters zeroed just before it
     paths = {"coprocessor_batch": main_launches, "state_tree": tree_launches,
              "storage_batch": storage_launches, "hash_batch": hash_launches,
-             "combined_batch": rom_launches}
+             "combined_batch": rom_launches, "recursion": rec_launches}
     for kernel in ("mxu96", "merkle", "keccak_f", "sha256_compress",
                    "blake2b_compress"):
         entries[kernel]["launches_by_path"] = {
@@ -1533,9 +1779,9 @@ def run(args, torch, child, cpu_path) -> int:
                              f"{tmp_dir}/mem_align.commit").items():
         if mode != "mxu96":
             entries[mode]["launches"] = n
-    arith = bp.sm_proofs["arith"][0]
-    profile_prove(torch, "arith", arith, np.asarray(traces["arith"]),
-                  sum(arith.phase_times.values()))
+    del prover, bp, traces
+    torch.cuda.empty_cache()
+    check_small_proofs(child, cpu_path)
 
     _log("chip_smoke: done")
     print(json.dumps({"kernels": [entries[m] for m in

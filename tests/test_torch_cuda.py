@@ -521,3 +521,161 @@ def test_cli_on_card_matches_cpu(card, tmp_path):
         out[dev] = json.loads((tmp_path / dev / "batch_proof.json")
                               .read_text())
     assert out["cuda"] == out["cpu"]
+
+
+def _fib_inner(device):
+    """The Fibonacci AIR at 2^6 with 4 queries, proved on `device`: the
+    inner proof of the JAX package's recursion tests."""
+    air, trace = examples.fib_air_trace()
+    setup = StarkSetup(air, n_queries=4, fri_fold_bits=2)
+    prover = StarkProver(setup, device=device)
+    return setup, prover, prover.prove(trace)
+
+
+# sha256 of the Fibonacci proof's recursive1 wrap at 2^13 (4 queries),
+# pinned from the JAX package's proof; tests/test_torch_recursive.py holds
+# the port's CPU proof to the same digest (its slow tier)
+R1_FIB_PIN = \
+    "88481fcb3c16047377f4142e56834379635cdff6d058200594e9e49081ec378d"
+
+
+def test_recursive1_card_proof_matches_jax_pin(card):
+    """The Fibonacci proof's recursive1 wrap at 2^13 (the JAX recursion
+    test's sizes) on the card has the JAX package's proof bytes (pinned:
+    the CPU prove takes minutes), verifies on the card, and commits through
+    the fused Merkle kernel."""
+    import hashlib
+
+    from zkevm_prover_tpu_torch.stark.recursive import RecursiveProver
+
+    setup, inner, proof = _fib_inner(card)
+    rp = RecursiveProver(setup, n_bits=13, n_queries=4, device=card)
+    before = poseidon_cuda.launches["merkle"]
+    rec = rp.prove_one(inner.verkey, proof)
+    opv = rp.outer_prover
+    assert poseidon_cuda.launches["merkle"] > before
+    assert verify(opv.setup, opv.verkey, rec.proof, device=card)
+    assert [int(v) for v in rec.proof.publics[1:5]] == \
+        [int(v) for v in np.ravel(np.asarray(inner.verkey))]
+    assert hashlib.sha256(rec.proof.to_json().encode()).hexdigest() == \
+        R1_FIB_PIN
+
+
+def test_recursive2_pair_join_on_card(card):
+    """Two recursive1 wraps joined by one recursive2 proof (the JAX
+    recursion test's pair, no publics chained) at 2^16: the join's circuit
+    needs 58,758 rows, more than the JAX test's 2^15. The join's vk
+    public is its own verkey, and a tampered join is rejected."""
+    from zkevm_prover_tpu_torch.stark.proof import StarkProof
+    from zkevm_prover_tpu_torch.stark.recursive import (Recursive2Prover,
+                                                        RecursiveProver)
+    from zkevm_prover_tpu_torch.stark.verifier import VerifyError
+
+    setup, inner, proof = _fib_inner(card)
+    rp = RecursiveProver(setup, n_bits=13, n_queries=4, device=card)
+    r1a = rp.prove_one(inner.verkey, proof)
+    r1b = rp.prove_one(inner.verkey, proof)
+    opv = rp.outer_prover
+    r2 = Recursive2Prover(opv.setup, opv.verkey, n_bits=16,
+                          join_publics=lambda p1, p2: [p1[0], p2[0]],
+                          chain=[], n_queries=4, device=card)
+    outer = r2.prove_pair(r1a.proof, opv.verkey, r1b.proof, opv.verkey)
+    o2 = r2.outer_prover
+    assert verify(o2.setup, o2.verkey, outer, device=card)
+    assert [int(v) for v in outer.publics[-4:]] == \
+        [int(v) for v in np.ravel(np.asarray(o2.verkey))]
+    bad = StarkProof.from_json(outer.to_json())
+    bad.fri[0].queries[0][0].values[0] += 1
+    with pytest.raises(VerifyError):
+        verify(o2.setup, o2.verkey, bad, device=card)
+
+
+def test_prover_recursive_chain_on_card(card):
+    """`Prover.wrap_batch_recursive` and `aggregate_recursive` over two
+    chained small combined batches (small_rom_batch, then the generator's
+    next ROM over the state it left) on the card: both r1 nodes and the r2
+    root pass `verify_recursive`, and the reversed pair raises."""
+    import dataclasses
+
+    from zkevm_prover_tpu_torch.executor import combined
+    from zkevm_prover_tpu_torch.executor import examples as batches
+    from zkevm_prover_tpu_torch.hashdb import Smt
+    from zkevm_prover_tpu_torch.prover import Prover, PublicInputs
+    from zkevm_prover_tpu_torch.prover.prover import (BatchProof,
+                                                      _fea_publics_hex)
+
+    db, tree, batch = batches.small_rom_batch(card)
+    smt = Smt(db)
+    bps = []
+    for k in range(2):
+        if k:
+            tree = dataclasses.replace(tree, root=tuple(
+                int(v) for v in res.new_state_root))
+            batch = batches.rom_batch(9, smt, tree, 10)
+        res, traces = combined.execute_batch(
+            batch.rom, 9, input=batch.input, smt=smt, include=batch.include,
+            device=card)
+        air = combined.build_batch_air(batch.rom, 9, include=batch.include)
+        sp = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device=card)
+        proof = sp.prove(air.stack_traces(traces))
+        pv = [int(x) for x in proof.publics]
+        pub = PublicInputs(
+            old_state_root=_fea_publics_hex(pv[0:8]), old_batch_num=pv[16],
+            new_state_root=_fea_publics_hex(pv[19:27]),
+            new_batch_num=pv[43])
+        bps.append(BatchProof(publics=pub, sm_proofs={"batch": (sp, proof)},
+                              counters={}))
+    assert bps[0].publics.new_state_root == bps[1].publics.old_state_root
+    prover = Prover(device=card)
+    nodes = [prover.wrap_batch_recursive(bp, rec_bits=18) for bp in bps]
+    root = prover.aggregate_recursive(nodes, rec_bits=18)
+    assert root.kind == "r2"
+    assert all(prover.verify_recursive(n) for n in (*nodes, root))
+    assert root.publics.old_state_root == bps[0].publics.old_state_root
+    assert root.publics.new_state_root == bps[1].publics.new_state_root
+    with pytest.raises(ValueError, match="chain"):
+        prover.aggregate_recursive(nodes[::-1], rec_bits=18)
+
+
+def test_compress_proof_card_matches_cpu(card):
+    """`Prover.compress_proof` (the batch's SMs re-proved under BN128
+    commitments) of the memory batch on the card equals the CPU's and
+    verifies."""
+    from zkevm_prover_tpu_torch.prover import Prover
+
+    jsons = {}
+    for dev in ("cpu", card):
+        prover = Prover(n_bits=9, device=dev)
+        bp = prover.gen_batch_proof(_memory_input())
+        got = prover.compress_proof(bp)
+        assert prover.compress_proof(bp) is got       # cached on the proof
+        (pv, proof), = got.values()
+        assert proof.hash_type == "BN128" and isinstance(pv.verkey, int)
+        if dev == card:
+            assert verify(pv.setup, pv.verkey, proof, device=dev)
+        jsons[str(dev)] = proof.to_json()
+    assert jsons["cuda"] == jsons["cpu"]
+
+
+def test_prove_rom_batch_on_card(card):
+    """`Executor.prove_rom_batch` of small_rom_batch's ROM (Main alone,
+    then each co-SM it feeds) on the card; every proof verifies, and
+    Main's equals the CPU's."""
+    from zkevm_prover_tpu_torch.executor import examples as batches
+    from zkevm_prover_tpu_torch.hashdb import Smt
+
+    mains = {}
+    for dev in ("cpu", card):
+        db, _, batch = batches.small_rom_batch(dev)
+        ex = Executor(device=dev)
+        if dev == "cpu":
+            res = ex.run_rom(batch.rom, input=batch.input, smt=Smt(db))
+            mains["cpu"] = ex.main_prover(batch.rom).prove(
+                res.trace).to_json()
+            continue
+        res, proofs = ex.prove_rom_batch(batch.rom, input=batch.input,
+                                         smt=Smt(db))
+        assert "main" in proofs and ex.verify_all(proofs)
+        mains["cuda"] = proofs["main"][1].to_json()
+    assert mains["cuda"] == mains["cpu"]

@@ -63,7 +63,8 @@ _GATES = {"keccak_f": (keccak_f, keccak_circuit.build),
 # nibble-semantics table needs 2816 rows
 DEFAULT_BITS = {"binary": 13, "memory": 9, "arith": 9, "mem_align": 9,
                 "poseidon_g": 9, "padding_pg": 9, "climb_key": 10,
-                "storage": 9, "padding_kk": 11, "padding_sha256": 11}
+                "main": 9, "storage": 9, "padding_kk": 11,
+                "padding_sha256": 11}
 
 
 class Executor:
@@ -115,10 +116,12 @@ class Executor:
         slots = (1 << self.n_bits[gate]) // self.circuit(gate).n_rows
         return slots * self.gates[gate]["pack"]
 
-    def prover(self, name: str) -> StarkProver:
-        """The SM's prover, its AIR and setup built at first use (the AIR's
-        host seconds in `air_times`)."""
-        if name not in self._provers:
+    def prover(self, name: str, hash_type: str = "GL") -> StarkProver:
+        """The SM's prover under the `hash_type` commitment scheme, its AIR
+        and setup built at first use (the AIR's host seconds in
+        `air_times`)."""
+        key = name if hash_type == "GL" else f"{name}:{hash_type}"
+        if key not in self._provers:
             t0 = time.perf_counter()
             if name == "binary":
                 air = binary.build_air(self.n_bits[name],
@@ -131,9 +134,10 @@ class Executor:
             else:
                 air = _SM_MODULES[name].build_air(self.n_bits[name])
             self.air_times[name] = time.perf_counter() - t0
-            setup = StarkSetup(air, n_queries=self.n_queries, fri_fold_bits=2)
-            self._provers[name] = StarkProver(setup, device=self.device)
-        return self._provers[name]
+            setup = StarkSetup(air, n_queries=self.n_queries, fri_fold_bits=2,
+                               hash_type=hash_type)
+            self._provers[key] = StarkProver(setup, device=self.device)
+        return self._provers[key]
 
     def execute(self, actions: BatchActions,
                 db=None) -> dict[str, np.ndarray]:
@@ -237,11 +241,54 @@ class Executor:
         """Prove every active SM; returns {name: (prover, proof)}."""
         return self.prove_traces(self.execute(actions, db=db))
 
-    def prove_traces(self, traces: dict[str, np.ndarray]) -> dict[str, object]:
+    def prove_traces(self, traces: dict[str, np.ndarray],
+                     hash_type: str = "GL") -> dict[str, object]:
         """Prove pre-computed commit pols (the resume half of the
-        commit-pols checkpoint)."""
-        return {name: (self.prover(name), self.prover(name).prove(tr))
+        commit-pols checkpoint) under the `hash_type` scheme."""
+        return {name: (self.prover(name, hash_type),
+                       self.prover(name, hash_type).prove(tr))
                 for name, tr in traces.items()}
+
+    def prove_recursive(self, actions: BatchActions,
+                        db=None) -> dict[str, object]:
+        """The StarkRecursiveF role: re-prove every active SM under the
+        BN128 commitment scheme so the proofs are verifiable inside the
+        final SNARK circuit (reference starkRecursiveF, prover.cpp:868)."""
+        return self.prove_traces(self.execute(actions, db=db),
+                                 hash_type="BN128")
+
+    # -- Main SM (ROM) path ------------------------------------------------
+
+    def run_rom(self, rom, input: dict | None = None, smt=None):
+        """Execute a zk-ASM ROM program (reference: fork_9 MainExecutor) —
+        fills the Main trace and emits the co-processor action batch."""
+        from .sm import main_sm
+
+        return main_sm.MainExecutor(
+            rom, self.n_bits["main"]).execute(input=input, smt=smt)
+
+    def main_prover(self, rom) -> StarkProver:
+        """Prover for the Main AIR bound to `rom` (cached per ROM object)."""
+        from .sm import main_sm
+
+        key = ("main", id(rom))
+        if key not in self._provers:
+            air = main_sm.build_air(rom, self.n_bits["main"])
+            self._provers[key] = StarkProver(
+                StarkSetup(air, n_queries=self.n_queries, fri_fold_bits=2),
+                device=self.device)
+        return self._provers[key]
+
+    def prove_rom_batch(self, rom, input: dict | None = None,
+                        smt=None) -> tuple[object, dict]:
+        """Full batch proof from a ROM: Main proof + all dispatched co-SM
+        proofs (reference: Executor::execute + Prover::genBatchProof)."""
+        res = self.run_rom(rom, input=input, smt=smt)
+        prover = self.main_prover(rom)
+        proofs = {"main": (prover, prover.prove(res.trace))}
+        proofs.update(self.prove_all(
+            res.actions, db=smt.db if smt is not None else None))
+        return res, proofs
 
     def verify_all(self, proofs: dict) -> bool:
         return all(verify(prover.setup, prover.verkey, proof,

@@ -1,17 +1,35 @@
-"""The Prover — request queue + batch-proof orchestration.
+"""The Prover — request queue + proof pipeline orchestration.
 
-Port of the batch half of `zkevm_prover_tpu/prover/prover.py`: `BatchProof`,
-`ProverRequest`, the request queue (`submit_request`, `wait_for_request`,
-its thread), `process_batch`, `gen_batch_proof` (the action-list path and
-the ROM path), `gen_batch_proof_from_commit` and `verify_batch_proof`, on
-`device` (CUDA unless told otherwise). The aggregation and the final SNARK
-wrap are not ported yet: their request types raise. `metrics` times each
-stage under the JAX package's labels (EXECUTOR_EXECUTE_BATCH_PROOF,
-STARK_PROOF_BATCH_PROOF, PROVER_<REQUEST TYPE>) and, in the port, the
-checkpoint's write (SAVE_CM_POLS_BATCH_PROOF).
+Port of `zkevm_prover_tpu/prover/prover.py` less the final SNARK wrap:
+`BatchProof`, `AggregatedProof`, `RecursiveNode`, `ProverRequest`, the
+request queue (`submit_request`, `wait_for_request`, its thread),
+`process_batch`, `gen_batch_proof` (the action-list path and the ROM path),
+`gen_batch_proof_from_commit`, `compress_proof` (the batch re-proved under
+BN128 commitments), the aggregation (`gen_aggregated_proof`,
+`aggregate_tree`, `verify_aggregated_proof`), the recursion
+(`wrap_batch_recursive`, `aggregate_recursive`, `verify_recursive`) and
+`verify_batch_proof`, on `device` (CUDA unless told otherwise).
+genFinalProof needs the SNARK wrap, not ported yet: its request raises.
+`metrics` times each stage under the JAX package's labels
+(EXECUTOR_EXECUTE_BATCH_PROOF, STARK_PROOF_BATCH_PROOF,
+STARK_RECURSIVE_1_PROOF, STARK_RECURSIVE_2_PROOF, STARK_RECURSIVE_F_PROOF,
+PROVER_<REQUEST TYPE>) and, in the port, the checkpoint's write
+(SAVE_CM_POLS_BATCH_PROOF).
+
+Two aggregation pipelines, as in the JAX package:
+
+  * RECURSIVE (the reference architecture, constant size):
+    gen_batch_proof (ROM path: ONE combined-AIR proof with publics)
+      -> wrap_batch_recursive   (recursive1: the batch proof verified
+                                 inside a fixed-shape recursive STARK)
+      -> aggregate_recursive    (recursive2: binary tree of 2->1 joins
+                                 with in-circuit publics chaining)
+  * the host join (genAggregatedProof): gen_aggregated_proof checks that
+    two proofs chain and carries both children verbatim.
 
 Reference: src/prover/prover.cpp — pending/current/completed request maps
 served by a proverThread (prover.cpp:182-260), genBatchProof (:392),
+genAggregatedProof with publics-chaining checks (:676, :700-740),
 processBatch fast path (:351).
 """
 
@@ -20,6 +38,8 @@ from __future__ import annotations
 import dataclasses
 import threading
 import uuid as uuidlib
+
+import numpy as np
 
 from .. import resolve_device
 from ..executor import Executor
@@ -30,10 +50,8 @@ from .input import ProofInput, PublicInputs
 # request types whose stages are not ported yet, and the JAX package's
 # modules they need
 UNPORTED = {
-    "genAggregatedProof": "the recursion (stark/recursive.py, gl_circuit.py, "
-                          "proof2zkin.py and the BN128 scheme)",
-    "genFinalProof": "the recursion and the SNARK wrap (snark/, ops/bn254.py, "
-                     "ops/bn254_device.py, ops/msm.py)",
+    "genFinalProof": "the SNARK wrap (snark/, ops/bn254_device.py, "
+                     "ops/msm.py)",
 }
 
 
@@ -50,12 +68,45 @@ class BatchProof:
     sm_proofs: dict            # name -> (prover, StarkProof)
     counters: dict
     actions: object = None     # the batch's actions (None when resumed)
+    recursive: dict = None     # name -> (prover, BN128 proof), lazy
     db: object = None          # hashdb Database (the ROM path's)
 
 
 @dataclasses.dataclass
+class AggregatedProof:
+    publics: PublicInputs
+    children: list             # [BatchProof | AggregatedProof]
+
+
+# the reference publics layout (prover.cpp:494-560): recursive2 chains the
+# left proof's new side to the right proof's old side
+RECURSIVE2_CHAIN = (
+    [(19 + j, 0 + j) for j in range(8)]      # newStateRoot == oldStateRoot'
+    + [(27 + j, 8 + j) for j in range(8)]    # newAccInputHash chains
+    + [(43, 16), (17, 17), (18, 18)]         # batchNum / chainId / forkId
+)
+
+
+def _recursive2_join(p1_sigs, p2_sigs):
+    """Joined 44 publics: the left proof's old side + the right's new."""
+    return p1_sigs[0:19] + p2_sigs[19:44]
+
+
+@dataclasses.dataclass
+class RecursiveNode:
+    """One node of the recursive aggregation tree (recursive1 leaf wrap
+    or a recursive2 join) — constant size regardless of subtree width."""
+    proof: object              # outer GL-scheme StarkProof (48 publics)
+    verkey: object             # the outer circuit's const root (4 GL)
+    publics: PublicInputs
+    kind: str                  # "r1" | "r2"
+    wrap_args: tuple = None    # what re-synthesizes this node's circuit
+
+
+@dataclasses.dataclass
 class ProverRequest:
-    type: str                  # genBatchProof / processBatch / UNPORTED
+    type: str                  # genBatchProof / genAggregatedProof /
+    #                            processBatch / UNPORTED
     payload: object
     uuid: str = dataclasses.field(default_factory=lambda: str(uuidlib.uuid4()))
     result: object = None
@@ -90,6 +141,8 @@ class Prover:
         self.rom_bits = rom_bits
         self.rom_include = rom_include
         self._rom_provers: dict = {}
+        self._r1 = None             # RecursiveProver, made at the first wrap
+        self._r2 = None             # Recursive2Prover, at the first join
         self.metrics = TimeMetricStorage("prover")
         self._pending: list[ProverRequest] = []
         self._completed: dict[str, ProverRequest] = {}
@@ -144,6 +197,8 @@ class Prover:
     def _dispatch(self, req: ProverRequest):
         if req.type == "genBatchProof":
             return self.gen_batch_proof(req.payload)
+        if req.type == "genAggregatedProof":
+            return self.gen_aggregated_proof(*req.payload)
         if req.type == "processBatch":
             return self.process_batch(req.payload)
         if req.type in UNPORTED:
@@ -331,6 +386,125 @@ class Prover:
                           counters=hdr["meta"].get("counters", {}),
                           actions=None)
 
+    def compress_proof(self, bp: BatchProof) -> dict:
+        """The recursiveF role: the batch's SM traces re-proven under the
+        BN128 scheme so the final circuit can verify them (cached on the
+        BatchProof)."""
+        if bp.recursive is None:
+            if bp.actions is None:
+                raise RuntimeError(
+                    "batch proof lacks actions (resumed from a commit-pols "
+                    "checkpoint?) — only a full gen_batch_proof result can "
+                    "be compressed/finalized")
+            with timer("STARK_RECURSIVE_F_PROOF", self.metrics, log=False):
+                bp.recursive = self.executor.prove_recursive(
+                    bp.actions, db=bp.db)
+        return bp.recursive
+
+    # -- aggregation (the host join, genAggregatedProof) ---------------------
+
+    def aggregate_tree(self, proofs: list) -> "AggregatedProof | BatchProof":
+        """Binary-tree reduction over an ordered batch-proof list — the
+        fan-in the external aggregator drives (SURVEY.md §3.3: recursive2
+        verifies two children, enabling a binary aggregation tree)."""
+        assert proofs, "nothing to aggregate"
+        layer = list(proofs)
+        while len(layer) > 1:
+            nxt = []
+            for i in range(0, len(layer) - 1, 2):
+                nxt.append(self.gen_aggregated_proof(layer[i], layer[i + 1]))
+            if len(layer) % 2:
+                nxt.append(layer[-1])
+            layer = nxt
+        return layer[0]
+
+    def gen_aggregated_proof(self, p1, p2) -> AggregatedProof:
+        """Join two proofs; mirrors the consistency checks of
+        Prover::genAggregatedProof (prover.cpp:700-740)."""
+        a, b = p1.publics, p2.publics
+        if a.new_state_root != b.old_state_root:
+            raise ValueError("aggregation: state roots do not chain")
+        if a.new_acc_input_hash != b.old_acc_input_hash:
+            raise ValueError("aggregation: acc input hashes do not chain")
+        if a.new_batch_num != b.old_batch_num:
+            raise ValueError("aggregation: batch numbers do not chain")
+        if a.chain_id != b.chain_id or a.fork_id != b.fork_id:
+            raise ValueError("aggregation: chain/fork mismatch")
+        pub = dataclasses.replace(a)
+        pub.new_state_root = b.new_state_root
+        pub.new_acc_input_hash = b.new_acc_input_hash
+        pub.new_batch_num = b.new_batch_num
+        pub.new_local_exit_root = b.new_local_exit_root
+        return AggregatedProof(publics=pub, children=[p1, p2])
+
+    # -- recursive aggregation (recursive1/recursive2 roles) ----------------
+
+    def _recursive1(self, batch_prover, rec_bits: int):
+        from ..stark.recursive import RecursiveProver
+
+        if self._r1 is None:
+            self._r1 = RecursiveProver(
+                batch_prover.setup, n_bits=rec_bits,
+                n_queries=self.executor.n_queries, device=self.device)
+        return self._r1
+
+    def _recursive2(self, child_setup, r1_verkey, rec_bits: int):
+        from ..stark.recursive import Recursive2Prover
+
+        if self._r2 is None:
+            self._r2 = Recursive2Prover(
+                child_setup, r1_verkey, n_bits=rec_bits,
+                join_publics=_recursive2_join, chain=RECURSIVE2_CHAIN,
+                n_queries=self.executor.n_queries, device=self.device)
+        return self._r2
+
+    def wrap_batch_recursive(self, bp: BatchProof,
+                             rec_bits: int = 18) -> RecursiveNode:
+        """recursive1: the ROM-path batch proof verified inside a fixed-
+        shape recursive STARK (reference STARK_RECURSIVE_1_PROOF,
+        prover.cpp:612-660)."""
+        prover, proof = bp.sm_proofs["batch"]
+        r1 = self._recursive1(prover, rec_bits)
+        with timer("STARK_RECURSIVE_1_PROOF", self.metrics, log=False):
+            rec = r1.prove_one(prover.verkey, proof)
+        return RecursiveNode(proof=rec.proof,
+                             verkey=r1.outer_prover.verkey,
+                             publics=bp.publics, kind="r1",
+                             wrap_args=(prover.verkey, proof))
+
+    def aggregate_recursive(self, nodes: list, rec_bits: int = 18
+                            ) -> RecursiveNode:
+        """Binary-tree recursive2 reduction: any number of chained nodes
+        -> ONE constant-size proof under ONE circuit (reference
+        genAggregatedProof + recursive2, prover.cpp:676-800)."""
+        assert nodes, "nothing to aggregate"
+        layer = list(nodes)
+        r1pv = self._r1.outer_prover
+        r2 = self._recursive2(r1pv.setup, r1pv.verkey, rec_bits)
+        while len(layer) > 1:
+            nxt = []
+            for i in range(0, len(layer) - 1, 2):
+                a, b = layer[i], layer[i + 1]
+                if a.publics.new_state_root != b.publics.old_state_root:
+                    raise ValueError("aggregation: state roots do not chain")
+                with timer("STARK_RECURSIVE_2_PROOF", self.metrics,
+                           log=False):
+                    proof = r2.prove_pair(a.proof, a.verkey,
+                                          b.proof, b.verkey)
+                pub = dataclasses.replace(a.publics)
+                pub.new_state_root = b.publics.new_state_root
+                pub.new_acc_input_hash = b.publics.new_acc_input_hash
+                pub.new_batch_num = b.publics.new_batch_num
+                pub.new_local_exit_root = b.publics.new_local_exit_root
+                nxt.append(RecursiveNode(
+                    proof=proof, verkey=r2.outer_prover.verkey,
+                    publics=pub, kind="r2",
+                    wrap_args=(a.proof, a.verkey, b.proof, b.verkey)))
+            if len(layer) % 2:
+                nxt.append(layer[-1])
+            layer = nxt
+        return layer[0]
+
     # -- verification (the oracle path) -------------------------------------
 
     def verify_batch_proof(self, bp: BatchProof) -> bool:
@@ -339,3 +513,32 @@ class Prover:
                          device=self.device)
             for prover, proof in bp.sm_proofs.values()
         )
+
+    def verify_aggregated_proof(self, ap) -> bool:
+        if isinstance(ap, BatchProof):
+            return self.verify_batch_proof(ap)
+        return all(self.verify_aggregated_proof(c) for c in ap.children)
+
+    def verify_recursive(self, node: RecursiveNode) -> bool:
+        """The node's proof against this Prover's own outer circuit of the
+        node's kind (never a verkey the node carries), its state roots
+        against its publics, and for an r2 node publics[44:48] == the
+        recursive2 verkey (the tree-closure invariant, reference
+        prover.cpp:556-560)."""
+        rp = self._r2 if node.kind == "r2" else self._r1
+        if rp is None:
+            raise ValueError(f"no {node.kind} circuit made by this Prover")
+        pv = rp.outer_prover
+        if not stark_verify(pv.setup, pv.verkey, node.proof,
+                            device=self.device):
+            return False
+        pubs = [int(v) for v in node.proof.publics]
+        if _fea_publics_hex(pubs[0:8]) != node.publics.old_state_root:
+            return False
+        if _fea_publics_hex(pubs[19:27]) != node.publics.new_state_root:
+            return False
+        if node.kind == "r2":
+            own = [int(v) for v in np.ravel(np.asarray(pv.verkey))]
+            if pubs[44:48] != own:
+                return False
+        return True

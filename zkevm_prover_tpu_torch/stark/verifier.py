@@ -7,7 +7,8 @@ Plays the role the JS pil-stark verifier plays for the reference C++ prover
      SURVEY.md App. B) — challenges, FRI special_x, query indices
   2. the quotient identity at xi:  C(evals) == q(xi) · Z_H(xi)
   3. Merkle openings of all five layer-0 trees + every FRI layer tree
-     (device-batched Poseidon — every path of a tree in one batch per level)
+     (GL: device-batched Poseidon — every path of a tree in one batch per
+     level; BN128: the host's arity-16 paths, `merkle_bn128`)
   4. the FRI fold chain per query down to the final polynomial
   5. low-degree of the final polynomial
 
@@ -21,6 +22,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import goldilocks as gl
+from ..ops import merkle_bn128
 from ..ops import poseidon_gl as pos
 from ..ops import refmodel as rm
 from . import expr as ex
@@ -57,8 +59,16 @@ def _roots_from_paths(rows, siblings, idx):
     return node
 
 
-def _verify_tree_queries(root, queries, idxs, what: str, device):
+def _verify_tree_queries(root, queries, idxs, what: str, device,
+                         hash_type: str = "GL"):
     if len(queries) == 0:
+        return
+    if hash_type == "BN128":
+        root_int = schememod.root_int(root)
+        for q, i in zip(queries, idxs):
+            _check(merkle_bn128.verify_group_proof(root_int, int(i), q.values,
+                                                   q.siblings),
+                   f"merkle root mismatch: {what}")
         return
     rows = gl.from_u64(np.stack([np.asarray(q.values) for q in queries]),
                        device)
@@ -166,15 +176,15 @@ def verify(setup: StarkSetup, verkey, proof: StarkProof, device=None) -> bool:
     for ti in range(4):
         _verify_tree_queries(
             proof.roots[ti], [q[ti] for q in proof.fri[0].queries], ys,
-            f"cm{ti + 1} tree", device,
+            f"cm{ti + 1} tree", device, sch.name,
         )
     _verify_tree_queries(verkey, [q[4] for q in proof.fri[0].queries], ys,
-                         "const tree", device)
+                         "const tree", device, sch.name)
     cur = list(ys)
     for si in range(1, len(steps)):
         cur = [y % (1 << steps[si]) for y in cur]
         _verify_tree_queries(proof.fri[si].root, proof.fri[si].queries, cur,
-                             f"fri layer {si} tree", device)
+                             f"fri layer {si} tree", device, sch.name)
 
     # ---- 4. FRI chain per query ---------------------------------------------
     w_ext = gl.w(steps[0])

@@ -6,8 +6,8 @@ Phases (any failure exits nonzero; no phase catches and continues):
 
  1. card line: name and power limit from nvidia-smi;
  2. build every CUDA kernel of the port from `zkevm_prover_tpu_torch/csrc`
-    (one nvcc per library source, all at once: the poseidon_gl library and
-    the hash library, csrc/hash.cu);
+    (one nvcc per library source, all at once: the poseidon_gl library,
+    the hash library, csrc/hash.cu, and the BN254 library, csrc/bn254.cu);
  3. every Poseidon mode's kernel (`poseidon_cuda.MODES`) against the plain
     torch permutation on the card, bit for bit: the r05 batch (pinned
     checksum), 515 random + 2 edge states, 2^22 states and a ragged
@@ -26,6 +26,22 @@ Phases (any failure exits nonzero; no phase catches and continues):
     (`merkle.merkelize_levels_plain`) at 2^22 x 48 and against the chunked
     tree through kernel 1 at 2^21 x 189 (arith's stage-1 section), every
     level; fused, chunked and plain timed beside `merkle_bound`;
+ 3d. (after 3c) the BN254 kernels (csrc/bn254.cu, `check_bn254`): the
+    fixed-base products at 2^22 scalars, 1,024 sampled against the host's
+    g1_mul_gen / g2_mul_gen; the G1 MSM at 2^10 .. 2^22 points and the G2
+    MSM at 2^10 .. 2^20 against g*_mul_gen(sum s_i k_i mod r) (their
+    bases k_i * G from the fixed-base kernel), the host MSM at 2^10 (G2
+    2^6), the plain twins at 2^10 and 2^16 and the edge cases (zero
+    scalars, scalars >= r, repeated points, P beside -P, infinity); the
+    Fr NTT at 2^10 .. 2^22 against its twin (2^10, 2^16), inverse after
+    forward and host Horner evaluations at 2^22; the pointwise step
+    against its twin; each timed beside its bound (`msm_bound`,
+    `fixed_base_bound`, `ntt_bound`, `pointwise_bound`: 32-bit multiply-
+    adds of its Montgomery products at the IMAD rate against its bytes)
+    and its twin's time (at 2^16; the NTT and pointwise also at 2^22);
+    the kernels line gives ms, plain_ms and bound_ms at one size
+    (`log2_size`: 2^16 for the MSMs and the fixed base, 2^22 for the NTT
+    and the pointwise step) and every size in its maps;
  3c. the hash kernels (csrc/hash.cu): Keccak-f, the SHA-256 compression
     and the Blake2b compression against their plain torch twins on the
     card, bit for bit, on 515 random instances and on 2^20 + 37 (Blake2b's
@@ -84,16 +100,19 @@ Phases (any failure exits nonzero; no phase catches and continues):
     "genBatchProof", ...))`, `wait_for_request`); then the CLI,
     `python -m zkevm_prover_tpu_torch --prove` of that batch's input JSON
     on the card in a subprocess, whose batch_proof.json must equal the
-    child's CLI run on the CPU; and the recursion slice's small proofs:
+    child's CLI run on the CPU; the final SNARKs of that memory batch (a
+    Groth16 proof with a fixed seed over `Prover._final_circuit`, the
+    plonk and the fflonk final proofs), card == CPU; and the recursion
+    slice's small proofs:
     the Fibonacci AIR under BN128 commitments, `Prover.compress_proof` of
     the memory batch (its SM re-proved under BN128) and the Fibonacci
     proof's recursive1 wrap at 2^13 (`stark.recursive.RecursiveProver`),
     each card == CPU, byte for byte, and each verified on the card;
  5b. the combined batch at full width: `executor.examples.rom_batch` at
-    2^`ROM_BITS` (17) over the 2^20-key tree, its ROM at the fork-9
+    2^`ROM_BITS` (16) over the 2^20-key tree, its ROM at the fork-9
     e2e vector's per-step op rates, closed on the scarcest bound SM;
     `combined.execute_batch` (host seconds of Main and each co-SM),
-    `build_batch_air(rom, 17, include=default_include(17))` (695
+    `build_batch_air(rom, 16, include=default_include(16))` (695
     committed columns: Main and the eight bound co-SMs), `StarkSetup`,
     one `StarkProver.prove` (its phases, peak device memory) and
     `verify`; each SM's fill and the counter that closed the batch; a
@@ -107,9 +126,10 @@ Phases (any failure exits nonzero; no phase catches and continues):
     kernel;
  5c. the recursion over it (`run_recursion`): batch B, the generator's
     next ROM (seed `ROM_SEED` + 1) over the state batch A (phase 5b's)
-    left, executed and proved under torch.profiler (`profile_prove`: device
-    busy time, idle share, beside A's first prove) and verified, its
-    publics chained on A's; then `Prover(device="cuda")`:
+    left, executed and proved (its prove's seconds and phases beside A's
+    first prove; under torch.profiler until the SNARK wrap joined, whose
+    event walk took minutes) and verified, its publics chained on A's;
+    then `Prover(device="cuda")`:
     `wrap_batch_recursive` of A and of B (recursive1, its circuit at the
     smallest power of two that holds it, `gl_circuit.rows_needed`) and
     `aggregate_recursive` of the two nodes (recursive2, the publics
@@ -121,9 +141,25 @@ Phases (any failure exits nonzero; no phase catches and continues):
     memory; the proof sizes. Counters zeroed before the first wrap, read
     after the last verify: the fused Merkle kernel and mxu96 must have
     run, and no other mode's kernel;
- 5. the co-processor batch at 2^`--bits` (18 since the recursion joined,
-    19 before, 20 until the combined batch joined, each cut to keep the
-    run inside its time limit; arith at 2^`--arith-bits`, 19) under
+ 5d. the SNARK wrap (`run_final_wrap`) at the JAX package's final-proof
+    test shape: two chained memory batches through `Prover(n_bits=
+    {"memory": 6}, n_queries=3, device="cuda")`, `gen_aggregated_proof`,
+    then `gen_final_proof(agg)` (stark-verify) under torch.profiler:
+    `compress_proof` of each batch (BN128), `build_join` (one R1CS that
+    verifies both STARKs), `groth16_setup` (its CRS on the fixed-base
+    kernel) and `groth16_prove` (the quotient on the Fr NTT kernels, five
+    MSMs on the MSM kernels); `verify_final_proof` true, a proof with
+    stark_publics[0] + 1 and one with pi_a + G1 rejected. Logged: the
+    circuit's constraints, signals and domain, the host seconds (compress,
+    build_join, `_qap_evals`, the CRS scalars, `eval_lc`, the packing) and
+    the card seconds (CRS, NTTs, each MSM), device busy and idle share,
+    peak memory. Counters zeroed just before gen_final_proof: the four
+    BN254 kernel families must have run;
+ 5. the co-processor batch at 2^`--bits` (17 since the SNARK wrap
+    joined, 18 since the recursion joined, 19 before, 20 until the
+    combined batch joined, each cut to keep the run inside its time
+    limit; arith at 2^`--arith-bits`, 18 since the
+    SNARK wrap joined, 19 before) under
     `poseidon_cuda.MODE = "mxu96"` — every ported SM filled to its capacity
     less one group (`executor.examples.full_batch`) in a `ProofInput`,
     executed, checkpointed and proved through the entry point,
@@ -148,13 +184,14 @@ Phases (any failure exits nonzero; no phase catches and continues):
     Merkle kernel) and re-proved under every other mode (through that
     mode's permutation and never the fused kernel), counters zeroed before
     and read after each; every proof must equal phase 5's byte for byte;
- 7. a kernels line (JSON: each mode's kernel, the fused Merkle kernel and
-    the three hash kernels, its launches on the main paths, summed and by
-    path (the co-processor batch, the state tree, the storage batch, the
-    hash batch, the combined batch, the recursion; Blake2b's are 0 on
-    every path, since
-    nothing calls it outside its checks), its time, its bound and its
-    plain version's time) and a final line {"ok": true, "device": {...}}.
+ 7. a kernels line (JSON: each mode's kernel, the fused Merkle kernel,
+    the three hash kernels and the six BN254 kernel families, its launches
+    on the main paths, summed and by path (the co-processor batch, the
+    state tree, the storage batch, the hash batch, the combined batch, the
+    recursion; the BN254 kernels' on the final wrap; Blake2b's are 0 on
+    every path, since nothing calls it outside its checks), its time, its
+    bound and its plain version's time) and a final line
+    {"ok": true, "device": {...}}.
 
 It needs the CUDA toolkit (nvcc) and one card; without CUDA it exits
 nonzero before printing anything.
@@ -270,9 +307,9 @@ def merkle_bound(h: int, w: int) -> tuple[float, str]:
 # log2 keys of the storage batch's pre-state tree: a state of a million
 # accounts and storage slots
 TREE_BITS = 20
-# log2 rows of the combined batch AIR (phase 5b; reference: 23) and its
-# seed
-ROM_BITS = 17
+# log2 rows of the combined batch AIR (phase 5b; reference: 23; 16 binds
+# the same SMs as 17, at half the prove time) and its seed
+ROM_BITS = 16
 ROM_SEED = 23
 
 # artifacts/bench/measure_baseline_r05.json: exact field results
@@ -610,6 +647,455 @@ def check_hash(torch, gl) -> dict:
     return entries
 
 
+# The least work of the BN254 kernels (csrc/bn254.cu), in 32-bit
+# multiply-adds at the IMAD rate. One Montgomery product (bn254.cuh fmul,
+# CIOS over 8 limbs) is 8 outer steps of 8 + 8 (a_i * b, lo and hi
+# chains) + 1 (m) + 8 + 8 (m * p) = 264; a Montgomery reduction alone
+# (the exit from Montgomery form) is 8 * (1 + 8 + 8) = 136. A mixed
+# Jacobian + affine addition (madd-2007-bl) is 7 products and 4 squarings,
+# a full one (add-2007-bl) 11 and 5. Over Fp2 a product is 3 Fp products
+# (Karatsuba) and a squaring 2 (complex squaring), so the mixed addition
+# is 29 Fp products and the full one 43, though bn254.cuh squares Fp2
+# with its product. An Fp inversion (fpow) is 256 squarings and one
+# product per set bit of p - 2; an Fp2 one adds 2 squarings and 2
+# products.
+BN_MONT_IMAD = 8 * (8 + 8 + 1 + 8 + 8)
+BN_REDC_IMAD = 8 * (1 + 8 + 8)
+BN_MADD = {False: 7 + 4, True: 7 * 3 + 4 * 2}
+BN_JADD = {False: 11 + 5, True: 11 * 3 + 5 * 2}
+BN_P = 21888242871839275222246405745257275088696311157297823662689037894645226208583
+BN_INV = 256 + bin(BN_P - 2).count("1")
+
+
+def _bn_bound(products: float, n_bytes: float, redcs: float = 0
+              ) -> tuple[float, str]:
+    return _int_bound(1, products * BN_MONT_IMAD + redcs * BN_REDC_IMAD,
+                      n_bytes)
+
+
+def msm_bound(mixed_adds: int, c: int, n: int, g2: bool) -> tuple[float, str]:
+    """(least ms, what bounds it) for an MSM of n points: this run's mixed
+    additions (its nonzero digits) and 2 * 2^c * ceil(254 / c) full
+    additions of the running sums, against the points and scalars read
+    once."""
+    adds = (mixed_adds * BN_MADD[g2]
+            + 2 * (1 << c) * (-(-254 // c)) * BN_JADD[g2])
+    return _bn_bound(adds, n * ((128 if g2 else 64) + 32))
+
+
+def fixed_base_bound(nonzero_digits: int, n: int, g2: bool
+                     ) -> tuple[float, str]:
+    """(least ms, what bounds it) for n fixed-base products: one mixed
+    addition per nonzero 4-bit digit; the normalisation, a point 6
+    products and 1 squaring (Montgomery's trick and x / Z^2, y / Z^3) and
+    the exit of x and y; one inversion per run of 16; against the scalars
+    read and the points written once."""
+    if g2:
+        prods = (nonzero_digits * BN_MADD[g2] + (6 * 3 + 2) * n
+                 + (BN_INV + 4) * n / 16)
+    else:
+        prods = nonzero_digits * BN_MADD[g2] + 7 * n + BN_INV * n / 16
+    return _bn_bound(prods, n * (32 + (128 if g2 else 64)),
+                     (4 if g2 else 2) * n)
+
+
+def ntt_bound(n: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for one forward Fr NTT of n elements:
+    (n/2) log n butterflies of one product (twiddles kept in Montgomery
+    form give ordinary-form products, and the forward scale is 1), against
+    n elements read and written."""
+    logn = n.bit_length() - 1
+    return _bn_bound(n // 2 * logn, n * 64)
+
+
+def pointwise_bound(n: int) -> tuple[float, str]:
+    """(a * b - c) * z: 2 products and 1 reduction an element (a b / R,
+    c / R, then times z R^2), 3 elements read, 1 written."""
+    return _bn_bound(2 * n, n * 128, n)
+
+
+# what each BN254 kernel replaces: the JAX package's device program, or
+# the host loop the port moved onto the card
+BN254_KERNELS = {
+    "g1_msm": "zkevm_prover_tpu/ops/bn254_device.py:390",
+    "g2_msm": "zkevm_prover_tpu/ops/bn254_device.py:390",
+    "g1_fixed_base": "zkevm_prover_tpu/snark/groth16.py:90",
+    "g2_fixed_base": "zkevm_prover_tpu/snark/groth16.py:110",
+    "fr_ntt": "zkevm_prover_tpu/ops/bn254.py:590",
+    "fr_pointwise": "zkevm_prover_tpu/snark/groth16.py:151",
+}
+
+
+def _random_fr(torch, n: int, seed: int):
+    """(n, 8) int32 scalars below r on the card (top limb below r's)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(-(1 << 31), 1 << 31, (n, 8), dtype=torch.int32,
+                      device="cuda", generator=g)
+    x[:, 7] = torch.randint(0, 0x30644E72, (n,), dtype=torch.int32,
+                            device="cuda", generator=g)
+    return x
+
+
+def _bn_entry(name: str, times: dict, plain: dict, bounds: dict,
+              at: int) -> dict:
+    """The kernels-line entry: ms, plain_ms and bound_ms at one size, 2^at
+    (the largest at which the twin was timed), every size in the maps."""
+    return {"name": f"bn254_{name}", "route": "cuda",
+            "source": "zkevm_prover_tpu_torch/csrc/bn254.cu",
+            "replaces": BN254_KERNELS[name], "max_abs_err": 0,
+            "log2_size": at, "ms": times[at], "plain_ms": plain[at],
+            "bound_ms": bounds[at][0], "bound_by": bounds[at][1],
+            "library_ms": None, "ms_by_log2_size": times,
+            "plain_ms_by_log2_size": plain,
+            "bound_ms_by_log2_size": {k: v[0] for k, v in bounds.items()}}
+
+
+def check_bn254(torch) -> dict:
+    """The BN254 kernels (csrc/bn254.cu) against their plain twins on the
+    card and the host oracles (ops/bn254.py), exact: the fixed-base
+    products at 2^22 scalars (1,024 sampled against g1_mul_gen and
+    g2_mul_gen); the G1 MSM at 2^10, 2^16, 2^20 and 2^22 points and the G2
+    MSM at 2^10, 2^16 and 2^20, their bases k_i * G from the fixed-base
+    kernel, so that the oracle is one g1_mul_gen(sum s_i k_i mod r); the
+    MSMs against the host Pippenger at 2^10 (G2: the host's at 2^6) and the
+    plain twins at 2^10 and 2^16, with zero scalars, scalars >= r,
+    repeated points and a point beside its negation; the Fr NTT at 2^10,
+    2^16, 2^20 and 2^22 (the plain twin at 2^10 and 2^16 with and without
+    the coset shifts, inverse after forward the identity at every size,
+    outputs at 2^22 against host Horner evaluations); the pointwise step
+    against its twin. Each timed beside its bound and its twin's time (at
+    2^16, and the NTT and the pointwise step at 2^22; the MSM and
+    fixed-base twins' tensor-wide steps make larger sizes slow); library
+    time: none (no PyTorch call computes these). Returns the kernels-line
+    entry of each (without `launches`), its ms, plain_ms and bound_ms at
+    the largest size its twin was timed at."""
+    from zkevm_prover_tpu_torch.ops import bn254 as host
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+    from zkevm_prover_tpu_torch.ops import msm as msm_ops
+
+    t_start = time.perf_counter()
+    entries = {}
+    R = host.R
+    rng = np.random.default_rng(12)
+
+    def ints(t):
+        return bd.limbs_to_ints(t)
+
+    def nonzero_digits(scalars, bits, n_windows):
+        return int((bd._scalar_digits(scalars, bits, n_windows) != 0).sum())
+
+    # the CRS kernel: 2^22 scalars, 1,024 sampled indices on the host
+    big = 22
+    k = _random_fr(torch, 1 << big, 1)
+    k[:3] = torch.from_numpy(bd.ints_to_limbs([0, 1, R - 1]).copy()).cuda()
+    idx = torch.from_numpy(np.concatenate(
+        [[0, 1, 2], rng.choice(1 << big, 1021, replace=False)])).cuda()
+    kidx = ints(k[idx])
+    for g2, name in ((False, "g1_fixed_base"), (True, "g2_fixed_base")):
+        pts = bd.fixed_base(k, g2)
+        torch.cuda.synchronize()
+        got = (bd.unpack_g2 if g2 else bd.unpack_g1)(pts[idx])
+        mul = host.g2_mul_gen if g2 else host.g1_mul_gen
+        t0 = time.perf_counter()
+        if got != [mul(v) for v in kidx]:
+            _fail(f"{name}: a sampled point != the host's")
+        host_s = time.perf_counter() - t0
+        small = k[:1 << 10]
+        if not torch.equal(bd.fixed_base(small, g2),
+                           bd.fixed_base_plain(small, g2)):
+            _fail(f"{name} != its plain twin at 2^10")
+        times, plain, bounds = {}, {}, {}
+        for bits in (16, 20, 22):
+            kb = k[:1 << bits]
+            times[bits] = _time_ms(lambda: bd.fixed_base(kb, g2),
+                                   reps=3 if bits == 22 else 10)
+            bounds[bits] = fixed_base_bound(
+                nonzero_digits(kb, bd.FB_BITS, bd.FB_WINDOWS), 1 << bits, g2)
+        kb = k[:1 << 16]
+        plain[16] = _time_ms(lambda: bd.fixed_base_plain(kb, g2), reps=1)
+        _log(f"{name}: 2^22 scalars, 1,024 sampled == the host's "
+             f"({host_s:.1f} s host), 2^10 == the plain twin; kernel ms "
+             + json.dumps({b: round(v, 4) for b, v in times.items()})
+             + f", bound ms " + json.dumps(
+                 {b: [round(v[0], 4), v[1]] for b, v in bounds.items()})
+             + f", plain 2^16 {plain[16]:.1f} ms")
+        entries[name] = _bn_entry(name, times, plain, bounds, 16)
+        if g2:
+            bases2 = pts[:1 << 20].clone()
+        else:
+            bases1 = pts
+        del pts
+    torch.cuda.empty_cache()
+
+    # the MSMs over those bases: s random, the oracle sum s_i k_i mod r
+    # (the plain twins' Fr products on the card, summed exactly)
+    s = _random_fr(torch, 1 << big, 2)
+
+    def fr_dot(a, b):
+        prod = bd.f_mul(bd.FR, bd.f_from_u32(a), bd.f_from_u32(b))
+        return ints(bd.f_to_u32(bd.FR, prod.sum(0, keepdim=True)))[0]
+
+    for g2, name, sizes in ((False, "g1_msm", (10, 16, 20, 22)),
+                            (True, "g2_msm", (10, 16, 20))):
+        bases = bases2 if g2 else bases1
+        msm = bd.g2_msm if g2 else bd.g1_msm
+        unpack = bd.unpack_g2 if g2 else bd.unpack_g1
+        mul = host.g2_mul_gen if g2 else host.g1_mul_gen
+        times, plain, bounds = {}, {}, {}
+        for bits in sizes:
+            n = 1 << bits
+            got = unpack(msm(bases[:n], s[:n]))[0]
+            want = mul(fr_dot(k[:n], s[:n]))
+            if got != want:
+                _fail(f"{name} 2^{bits} != g*_mul_gen(sum s_i k_i)")
+            if bits in (10, 16):
+                p = msm_plain_checked(torch, bd, bases[:n], s[:n], g2, got,
+                                      name, bits)
+                if bits == 16:
+                    plain[bits] = p
+            c = bd.msm_window(n)
+            times[bits] = _time_ms(lambda: msm(bases[:n], s[:n]),
+                                   reps=3 if bits >= 20 else 10)
+            bounds[bits] = msm_bound(
+                nonzero_digits(s[:n], c, bd.msm_windows(c)), c, n, g2)
+        # the host's own MSM at a small size, and the edge cases through
+        # ops/msm.py with Python ints (scalars >= r reduced there)
+        hn = 6 if g2 else 10
+        pts = unpack(bases[:1 << hn])
+        sc = ints(s[:1 << hn])
+        if unpack(msm(bases[:1 << hn], s[:1 << hn]))[0] != \
+                (host.g2_msm if g2 else host.g1_msm)(pts, sc):
+            _fail(f"{name} 2^{hn} != the host's MSM")
+        edge_p = pts[:12] + [pts[0], pts[0], pts[1],
+                             (host.g2_neg if g2 else host.g1_neg)(pts[1]),
+                             pts[2], host.INF]
+        edge_s = sc[:12] + [sc[0], sc[0], 7, 7, 0, 5]
+        edge_s[3] = 0
+        edge_s[4] = R + 11
+        edge_s[5] = (1 << 256) - 1
+        got = (msm_ops.g2_msm if g2 else msm_ops.g1_msm)(edge_p, edge_s,
+                                                        "cuda")
+        want = host.INF
+        for pt, sv in zip(edge_p, edge_s):
+            term = (host.g2_mul if g2 else host.g1_mul)(pt, sv) \
+                if pt is not host.INF else host.INF
+            want = (host.g2_add if g2 else host.g1_add)(want, term)
+        if got != want:
+            _fail(f"{name}: the edge cases (zero scalars, scalars >= r, "
+                  "repeated points, P beside -P, infinity) != the host's")
+        _log(f"{name}: == g*_mul_gen(sum s_i k_i mod r) at 2^"
+             + ", 2^".join(str(b) for b in sizes)
+             + f", == the host MSM at 2^{hn}, == the plain twin at 2^10 and "
+             f"2^16, the edge cases == the host's; kernel ms "
+             + json.dumps({b: round(v, 4) for b, v in times.items()})
+             + ", bound ms " + json.dumps(
+                 {b: [round(v[0], 4), v[1]] for b, v in bounds.items()})
+             + f", plain 2^16 {plain[16]:.1f} ms")
+        entries[name] = _bn_entry(name, times, plain, bounds, 16)
+    del bases1, bases2
+    torch.cuda.empty_cache()
+
+    # the Fr NTT
+    times, plain, bounds = {}, {}, {}
+    for bits in (10, 16, 20, 22):
+        n = 1 << bits
+        x = _random_fr(torch, n, 30 + bits)
+        y = bd.fr_ntt(x)
+        if not torch.equal(bd.fr_ntt(y, inverse=True), x):
+            _fail(f"fr_ntt 2^{bits}: inverse after forward != identity")
+        if bits in (10, 16):
+            for kw in ({}, {"shift": 5}, {"post": 7}):
+                for inv in (False, True):
+                    if not torch.equal(bd.fr_ntt(x, inv, **kw),
+                                       bd.fr_ntt_plain(x, inv, **kw)):
+                        _fail(f"fr_ntt 2^{bits} {kw} inverse={inv} != "
+                              "the plain twin")
+        if bits == 22:
+            coeffs = ints(x)
+            w = host.fr_w(bits)
+            w1, w2 = pow(w, 1, R), pow(w, 12345, R)
+            acc1 = acc2 = 0
+            for cf in reversed(coeffs):
+                acc1 = (acc1 * w1 + cf) % R
+                acc2 = (acc2 * w2 + cf) % R
+            if ints(y[1:2])[0] != acc1 or ints(y[12345:12346])[0] != acc2:
+                _fail("fr_ntt 2^22 outputs 1 and 12,345 != the host's Horner")
+        times[bits] = _time_ms(lambda: bd.fr_ntt(x))
+        if bits in (16, 22):
+            plain[bits] = _time_ms(lambda: bd.fr_ntt_plain(x),
+                                   reps=2 if bits == 16 else 1)
+        bounds[bits] = ntt_bound(n)
+    _log("fr_ntt: == the plain twin at 2^10 and 2^16 (forward, inverse, "
+         "shifted), inverse after forward == identity at 2^10..2^22, "
+         "outputs 1 and 12,345 at 2^22 == host Horner; kernel ms "
+         + json.dumps({b: round(v, 4) for b, v in times.items()})
+         + ", bound ms " + json.dumps(
+             {b: [round(v[0], 4), v[1]] for b, v in bounds.items()})
+         + f", plain 2^16 {plain[16]:.1f} ms, 2^22 {plain[22]:.1f} ms")
+    entries["fr_ntt"] = _bn_entry("fr_ntt", times, plain, bounds, 22)
+    times, plain, bounds = {}, {}, {}
+    for bits in (16, 22):
+        a, b, c = (_random_fr(torch, 1 << bits, 50 + i) for i in range(3))
+        if bits == 16:
+            if not torch.equal(bd.fr_pointwise(a, b, c, 12345),
+                               bd.fr_pointwise_plain(a, b, c, 12345)):
+                _fail("fr_pointwise != its plain twin at 2^16")
+        plain[bits] = _time_ms(
+            lambda: bd.fr_pointwise_plain(a, b, c, 12345),
+            reps=2 if bits == 16 else 1)
+        times[bits] = _time_ms(lambda: bd.fr_pointwise(a, b, c, 12345))
+        bounds[bits] = pointwise_bound(1 << bits)
+    entries["fr_pointwise"] = _bn_entry("fr_pointwise", times, plain, bounds,
+                                        22)
+    _log("fr_pointwise: == the plain twin at 2^16; kernel ms "
+         + json.dumps({b: round(v, 4) for b, v in times.items()})
+         + ", bound ms " + json.dumps(
+             {b: [round(v[0], 4), v[1]] for b, v in bounds.items()})
+         + f", plain 2^16 {plain[16]:.1f} ms, 2^22 {plain[22]:.1f} ms; "
+         f"BN254 checks "
+         f"{time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    return entries
+
+
+def msm_plain_checked(torch, bd, bases, scalars, g2, want, name, bits):
+    """The plain twin's MSM on the card == the kernels' result `want`;
+    returns the twin's ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bd.msm_plain(bases, scalars, g2)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = (bd.unpack_g2 if g2 else bd.unpack_g1)(out)[0]
+    if got != want:
+        _fail(f"{name} 2^{bits} != its plain twin")
+    return ms
+
+
+def _chain_input(old_root="0x" + "00" * 32, old_acc="0x" + "00" * 32, num=0):
+    """tests/test_prover_pipeline.py's `_input`: the memory batch with its
+    publics chained on a previous batch."""
+    from zkevm_prover_tpu_torch.prover import ProofInput, PublicInputs
+
+    inp = memory_input()
+    return ProofInput(publics=PublicInputs(
+        old_state_root=old_root, old_acc_input_hash=old_acc,
+        old_batch_num=num, batch_l2_data="0xdead"), actions=inp.actions)
+
+
+def run_final_wrap(torch, pcu, hcu):
+    """Phase 5d, the SNARK wrap at the JAX package's final-proof test shape
+    (tests/test_prover_pipeline.py:119-185): two chained memory batches
+    through `Prover(n_bits={"memory": 6}, n_queries=3, device="cuda")`,
+    `gen_aggregated_proof`, then `gen_final_proof(agg)` in the default
+    stark-verify mode under torch.profiler (its device busy time and idle
+    share): `compress_proof` of each (BN128), `build_join`,
+    `groth16_setup` (the CRS on the fixed-base kernel) and `groth16_prove`
+    (the quotient on the NTT kernels, the five MSMs); `verify_final_proof`
+    true, a proof whose stark_publics[0] is raised by one and one whose
+    pi_a is replaced by pi_a + G1 rejected. Logs the circuit's
+    constraints, signals and domain, the host and card seconds of each
+    step, the peak device memory and each kernel's launches, counted with
+    every counter zeroed just before gen_final_proof. Returns them."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zkevm_prover_tpu_torch.ops import bn254 as host
+    from zkevm_prover_tpu_torch.ops import bn254_cuda as bcu
+    from zkevm_prover_tpu_torch.prover import Prover
+
+    t_start = time.perf_counter()
+    prover = Prover(n_bits={"memory": 6}, n_queries=3, device="cuda")
+    bp1 = prover.gen_batch_proof(_chain_input())
+    bp2 = prover.gen_batch_proof(_chain_input(
+        bp1.publics.new_state_root, bp1.publics.new_acc_input_hash, 1))
+    agg = prover.gen_aggregated_proof(bp1, bp2)
+    if not prover.verify_aggregated_proof(agg):
+        _fail("final wrap: the two memory batches do not verify")
+    batches_s = time.perf_counter() - t_start
+    for counters in (pcu.launches, hcu.launches, bcu.launches):
+        for k in counters:
+            counters[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fp = prover.gen_final_proof(agg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {**pcu.launches, **hcu.launches, **bcu.launches}
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e9
+    if fp.groth16.get("system") != "groth16-stark":
+        _fail(f"final wrap: system {fp.groth16.get('system')}")
+    key = next(iter(prover._join_g16))
+    g16 = prover._join_g16[key]
+    r1cs = g16.r1cs
+    t0 = time.perf_counter()
+    if not prover.verify_final_proof(fp):
+        _fail("verify_final_proof rejected the stark-verify final proof")
+    verify_s = time.perf_counter() - t0
+    bad = dataclasses.replace(
+        fp, stark_publics=[fp.stark_publics[0] + 1] + fp.stark_publics[1:])
+    if prover.verify_final_proof(bad):
+        _fail("a final proof with stark_publics[0] + 1 verified")
+    bad = dataclasses.replace(fp, groth16={
+        **fp.groth16, "pi_a": host.g1_add(fp.groth16["pi_a"], host.G1_GEN)})
+    if prover.verify_final_proof(bad):
+        _fail("a final proof with pi_a + G1 verified")
+    for k in ("g1_msm", "g2_msm", "g1_fixed_base", "g2_fixed_base",
+              "fr_ntt", "fr_pointwise"):
+        if launches[k] == 0:
+            _fail(f"final wrap: the {k} kernel did not run: {launches}")
+    m = prover.metrics.snapshot()
+    host_s = {k: round(m[k]["total_s"], 3) for k in ("STARK_RECURSIVE_F_PROOF",
+                                      "STARK_FINAL_CIRCUIT",
+                                      "GROTH16_SETUP_FINAL_PROOF",
+                                      "RAPID_SNARK")}
+    st = {k: round(v, 3) for k, v in prover.snark_times.items()}
+    _log(f"final wrap: two chained memory batches (2^6, 3 queries) proved "
+         f"and aggregated in {batches_s:.1f} s; the stark-verify circuit "
+         f"{len(r1cs.constraints)} constraints, {r1cs.n_signals} signals, "
+         f"{r1cs.n_public} publics, domain 2^{g16.domain_bits}; "
+         f"gen_final_proof {wall:.1f} s wall (device busy {busy:.3f} s, "
+         f"idle share {1 - busy / wall:.3f}), peak {peak:.2f} GiB; timers "
+         + json.dumps(host_s) + "; Groth16 steps (s): " + json.dumps(st))
+    _log(f"final wrap: verify_final_proof true ({verify_s:.1f} s), "
+         "stark_publics[0] + 1 and pi_a + G1 rejected; kernel launches "
+         + json.dumps(launches)
+         + f"; phase {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def small_snark_proofs(device: str, prover, bp) -> dict:
+    """The final SNARKs of the request queue's memory batch `bp` on
+    `device`: a Groth16 proof with a fixed seed over the digest circuit
+    (`Prover._final_circuit`), and the plonk and fflonk final proofs
+    (deterministic); each card proof must verify."""
+    from zkevm_prover_tpu_torch.ops.bn254 import R
+    from zkevm_prover_tpu_torch.snark import groth16_prove, groth16_verify
+
+    out = {}
+    t0 = time.perf_counter()
+    digest = prover.publics_digest(bp.publics)
+    inv = pow(digest, R - 2, R) if digest else 0
+    setup = prover._final_circuit()
+    proof = groth16_prove(setup, [1, digest, digest, inv, digest * inv % R],
+                          seed=b"chip_smoke")
+    if device == "cuda" and not groth16_verify(setup, [digest], proof):
+        _fail("the seeded digest Groth16 proof does not verify")
+    out["groth16 digest"] = json.dumps(proof, sort_keys=True)
+    for snark in ("plonk", "fflonk"):
+        fp = prover.gen_final_proof(bp, snark=snark)
+        if device == "cuda" and not prover.verify_final_proof(fp):
+            _fail(f"the {snark} final proof does not verify")
+        out[f"{snark} final"] = json.dumps(fp.groth16, sort_keys=True)
+    _log(f"small SNARK proofs on {device}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def memory_input():
     """tests/test_prover_pipeline.py's batch: two memory actions."""
     from zkevm_prover_tpu_torch.executor import BatchActions
@@ -698,6 +1184,7 @@ def small_proofs(device: str) -> dict:
     if device == "cuda" and not prover.verify_batch_proof(bp):
         _fail("the request queue's memory batch does not verify")
     out["prover queue memory 2^9"] = bp.sm_proofs["memory"][1].to_json()
+    out.update(small_snark_proofs(device, prover, bp))
     out.update(small_recursion_proofs(device, prover, bp))
     return out
 
@@ -828,7 +1315,7 @@ def check_small_proofs(child, path: str) -> None:
     with open(path) as f:
         cpu = json.load(f)
     if sorted(cpu) != sorted(card) or \
-            len(card) != 4 + 1 + 7 + 3 + 4 + 1 + 1 + 3:
+            len(card) != 4 + 1 + 7 + 3 + 4 + 1 + 1 + 3 + 3:
         _fail(f"proved {sorted(card)} on the card, {sorted(cpu)} on the CPU")
     for name, text in card.items():
         if text != cpu[name]:
@@ -1072,46 +1559,6 @@ def run_modes(torch, pcu, prover, bp, traces, path: str) -> dict:
     _log("modes: steady mem_align prove (s; mxu96's with the checkpoint's "
          "load): " + json.dumps({m: round(t, 3) for m, t in times.items()}))
     return launches
-
-
-def profile_prove(torch, name, prover, trace, first_s: float):
-    """A prove of the trace under torch.profiler, logged beside the first
-    prove's seconds `first_s` of its AIR: device busy time, the Poseidon
-    kernels' share of it, the device's idle share of the profiled wall
-    time, and the top device ops. Returns the proof and the wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    # device activity only, summed from the raw events: the prove launches
-    # about a million kernels, and key_averages() takes ~0.3 ms per event
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        proof = prover.prove(trace)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: dict = {}
-    n_kernels = 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
-            n_kernels += 1
-    if not by_name:
-        _fail("torch.profiler recorded no device events")
-    busy_s = sum(by_name.values()) / 1e9
-    pos_s = sum(v for k, v in by_name.items()
-                if ("permute" in k or "merkle" in k) and "_kernel" in k) / 1e9
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    top = [(k.removeprefix("void ").removeprefix("at::native::")[:110], v)
-           for k, v in top]
-    _log(f"{name} first prove: {first_s:.3f} s "
-         f"({prover.setup.n / first_s / 1e6:.4f} Mrow/s); profiled wall "
-         f"{wall:.3f} s, {n_kernels} device events, device busy "
-         f"{busy_s:.3f} s (idle share "
-         f"{1 - busy_s / wall:.3f}), poseidon kernels {pos_s:.4f} s "
-         f"({100 * pos_s / busy_s:.1f} % of busy)")
-    _log(f"{name} top device time (s): " + json.dumps(
-        [[k, round(v / 1e9, 4)] for k, v in top]))
-    return proof, wall
 
 
 def _device_seconds(prof) -> float:
@@ -1559,8 +2006,8 @@ def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
     """Phase 5c, the recursion over the full-width combined batch: batch A
     is phase 5b's proof; batch B is the generator's next ROM
     (`rom_batch(bits, smt, tree at A's new root, ROM_SEED + 1)`) over the
-    state A left, proved under torch.profiler (its idle share) and
-    verified. Each is wrapped by `Prover(device="cuda").
+    state A left, proved (without the profiler: its event walk took
+    minutes) and verified. Each is wrapped by `Prover(device="cuda").
     wrap_batch_recursive` (recursive1), the two nodes joined by
     `aggregate_recursive` (recursive2, the publics chained in the
     circuit); `verify_recursive` must accept both r1 nodes and the r2
@@ -1608,8 +2055,13 @@ def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
          f"{batch_b.closed_by}, ops {json.dumps(batch_b.ops)}; "
          f"execute_batch {exec_s:.2f} s, AIR + setup {setup_s:.2f} s "
          "(host); the same AIR shape as batch A")
-    proof_b, _ = profile_prove(torch, f"combined batch B 2^{bits}",
-                               prover_b, stacked, first_s)
+    t0 = time.perf_counter()
+    proof_b = prover_b.prove(stacked)
+    torch.cuda.synchronize()
+    _log(f"combined batch B 2^{bits} first prove: "
+         f"{time.perf_counter() - t0:.3f} s (batch A's {first_s:.3f} s); "
+         "phases (s): " + json.dumps(
+             {k: round(v, 4) for k, v in prover_b.phase_times.items()}))
     del stacked
     if not verify(prover_b.setup, prover_b.verkey, proof_b, device="cuda"):
         _fail("verify rejected the combined batch B")
@@ -1692,10 +2144,10 @@ def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bits", type=int, default=18,
+    ap.add_argument("--bits", type=int, default=17,
                     help="log2 rows of every SM but arith in the "
                          "co-processor and storage batches (reference: 23)")
-    ap.add_argument("--arith-bits", type=int, default=19,
+    ap.add_argument("--arith-bits", type=int, default=18,
                     help="log2 rows of arith (reference: 23)")
     ap.add_argument("--cpu-proofs", metavar="PATH",
                     help=argparse.SUPPRESS)  # the child of start_cpu_proofs
@@ -1749,6 +2201,7 @@ def run(args, torch, child, cpu_path) -> int:
     entries = check_poseidon(torch, gl, pg, pcu)
     entries["merkle"] = check_merkle(torch, gl, pcu)
     entries.update(check_hash(torch, gl))
+    entries.update(check_bn254(torch))
     check_ntt(torch, gl)
     smt, tree, tree_launches = run_state_tree(torch, pcu, hcu, TREE_BITS)
     storage_launches = run_storage_batch(torch, pcu, hcu, smt, tree,
@@ -1759,6 +2212,8 @@ def run(args, torch, child, cpu_path) -> int:
     rec_launches = run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a,
                                  rom_prover, rom_proof, rom_s)
     del smt, tree, rom_prover, rom_proof, batch_a, res_a
+    torch.cuda.empty_cache()
+    final_launches = run_final_wrap(torch, pcu, hcu)
     torch.cuda.empty_cache()
     ckpt = f"{tmp_dir}/batch.commit"
     prover, bp, proved, main_launches = run_batch(
@@ -1773,6 +2228,11 @@ def run(args, torch, child, cpu_path) -> int:
             path: counts[kernel] for path, counts in paths.items()}
         entries[kernel]["launches"] = sum(
             entries[kernel]["launches_by_path"].values())
+    # the BN254 kernels run on the final wrap's path alone
+    for kernel in BN254_KERNELS:
+        entries[kernel]["launches_by_path"] = {
+            "final_wrap": final_launches[kernel]}
+        entries[kernel]["launches"] = final_launches[kernel]
     traces = check_checkpoint(ckpt, proved)
     del proved
     for mode, n in run_modes(torch, pcu, prover, bp, traces,
@@ -1787,7 +2247,8 @@ def run(args, torch, child, cpu_path) -> int:
     print(json.dumps({"kernels": [entries[m] for m in
                                   ("mxu96", "merkle", "mxu24", "mxu",
                                    "blocked", "1d", "2d", "keccak_f",
-                                   "sha256_compress", "blake2b_compress")]}))
+                                   "sha256_compress", "blake2b_compress",
+                                   *BN254_KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

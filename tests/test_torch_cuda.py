@@ -679,3 +679,182 @@ def test_prove_rom_batch_on_card(card):
         assert "main" in proofs and ex.verify_all(proofs)
         mains["cuda"] = proofs["main"][1].to_json()
     assert mains["cuda"] == mains["cpu"]
+
+
+# -- the SNARK wrap's BN254 kernels (csrc/bn254.cu) ---------------------------
+
+def _fr(n, seed, device):
+    """(n, 8) int32 scalars below r (the top limb below r's)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, (n, 8), dtype=np.uint64)
+    x[:, 7] %= 0x30644E72
+    return torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+@pytest.mark.parametrize("n", [1, 3, 100, 1 << 12])
+def test_bn254_fixed_base_matches_plain(card, g2, n):
+    from zkevm_prover_tpu_torch.ops import bn254_cuda
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+
+    k = _fr(n, n, card)
+    k[0] = 0
+    key = "g2_fixed_base" if g2 else "g1_fixed_base"
+    before = bn254_cuda.launches[key]
+    out = bd.fixed_base(k, g2)
+    assert bn254_cuda.launches[key] == before + 1
+    assert torch.equal(out, bd.fixed_base_plain(k, g2))
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+@pytest.mark.parametrize("n", [1, 17, 1 << 10, 1 << 14])
+def test_bn254_msm_matches_plain(card, g2, n):
+    from zkevm_prover_tpu_torch.ops import bn254_cuda
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+
+    pts = bd.fixed_base(_fr(n, 2 * n, card), g2)
+    s = _fr(n, 2 * n + 1, card)
+    if n > 2:
+        s[1] = 0                      # a zero scalar
+        pts[2] = pts[0]               # a repeated point
+    key = "g2_msm" if g2 else "g1_msm"
+    before = bn254_cuda.launches[key]
+    out = (bd.g2_msm if g2 else bd.g1_msm)(pts, s)
+    assert bn254_cuda.launches[key] == before + 1
+    assert torch.equal(out, bd.msm_plain(pts, s, g2))
+
+
+def test_bn254_msm_skewed_scalars_and_edges(card):
+    """A witness of bits (one bucket holds half the points, cut into
+    chunks), P beside -P, infinity and scalars >= r, against the host."""
+    from zkevm_prover_tpu_torch.ops import bn254 as host
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+    from zkevm_prover_tpu_torch.ops import msm
+
+    n = 1 << 17
+    k = [int(v) for v in np.random.default_rng(7).integers(1, 1 << 62, n)]
+    bits = [int(v) for v in np.random.default_rng(8).integers(0, 2, n)]
+    pts = bd.fixed_base(bd.pack_fr(k, card), False)
+    got = bd.unpack_g1(bd.g1_msm(pts, bd.pack_fr(bits, card)))[0]
+    assert got == host.g1_mul_gen(sum(a * b for a, b in zip(k, bits)))
+    p, q = host.g1_mul_gen(5), host.g1_mul_gen(9)
+    edge = [p, host.g1_neg(p), q, q, host.INF]
+    sc = [3, 3, host.R + 2, (1 << 256) - 1, 4]
+    want = host.INF
+    for pt, v in zip(edge, sc):
+        want = host.g1_add(want, host.g1_mul(pt, v) if pt else host.INF)
+    assert msm.g1_msm(edge, sc, card) == want
+
+
+@pytest.mark.parametrize("logn", [0, 1, 5, 10, 11, 16])
+def test_bn254_ntt_matches_plain(card, logn):
+    from zkevm_prover_tpu_torch.ops import bn254_cuda
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+
+    x = _fr(1 << logn, logn, card)
+    for kw in ({}, {"shift": 5}, {"post": 7}, {"shift": 3, "post": 11}):
+        for inverse in (False, True):
+            before = bn254_cuda.launches["fr_ntt"]
+            out = bd.fr_ntt(x, inverse, **kw)
+            assert bn254_cuda.launches["fr_ntt"] == before + 1
+            assert torch.equal(out, bd.fr_ntt_plain(x, inverse, **kw))
+    assert torch.equal(bd.fr_ntt(bd.fr_ntt(x), inverse=True), x)
+
+
+def test_bn254_pointwise_matches_plain(card):
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+
+    a, b, c = (_fr(1 << 12, 40 + i, card) for i in range(3))
+    assert torch.equal(bd.fr_pointwise(a, b, c, 12345),
+                       bd.fr_pointwise_plain(a, b, c, 12345))
+
+
+def test_bn254_kernels_reject_what_they_do_not_take(card):
+    from zkevm_prover_tpu_torch.ops import bn254_cuda
+
+    before = dict(bn254_cuda.launches)
+    cpu = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bn254_cuda.fixed_base(cpu, False)
+    with pytest.raises(TypeError, match="int32"):
+        bn254_cuda.fr_ntt(cpu.to(card).long())
+    with pytest.raises(ValueError, match="power of two"):
+        bn254_cuda.fr_ntt(torch.zeros((3, 8), dtype=torch.int32,
+                                      device=card))
+    with pytest.raises(ValueError, match="one length"):
+        bn254_cuda.msm(torch.zeros((4, 2, 8), dtype=torch.int32, device=card),
+                       torch.zeros((3, 8), dtype=torch.int32, device=card),
+                       False)
+    assert bn254_cuda.launches == before
+
+
+def _final_memory_publics():
+    from zkevm_prover_tpu_torch.prover import ProofInput, PublicInputs
+
+    return ProofInput(
+        publics=PublicInputs(batch_l2_data="0xdead"),
+        actions=BatchActions(memory=[
+            {"addr": 1, "step": 1, "wr": 1, "value": 5},
+            {"addr": 1, "step": 2, "wr": 0, "value": 0}]))
+
+
+def test_snark_proofs_card_match_cpu(card):
+    """A seeded Groth16 proof over the digest circuit, the plonk and the
+    fflonk final proofs of the memory batch: card == CPU."""
+    import dataclasses
+
+    from zkevm_prover_tpu_torch.ops.bn254 import R
+    from zkevm_prover_tpu_torch.prover import Prover
+    from zkevm_prover_tpu_torch.prover.prover import AggregatedProof
+    from zkevm_prover_tpu_torch.snark import groth16_prove
+
+    pub = dataclasses.replace(_final_memory_publics().publics,
+                              new_state_root="0x" + "22" * 32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        pv = Prover(n_bits=9, device=dev)
+        agg = AggregatedProof(pub, [])
+        d = pv.publics_digest(pub)
+        inv = pow(d, R - 2, R)
+        got[dev] = [groth16_prove(pv._final_circuit(), [1, d, d, inv, 1],
+                                  seed=b"card")]
+        for snark in ("plonk", "fflonk"):
+            fp = pv.gen_final_proof(agg, snark=snark)
+            assert pv.verify_final_proof(fp)
+            got[dev].append(fp.groth16)
+    assert got["cuda"] == got["cpu"]
+
+
+def test_stark_verify_final_wrap_on_card(card):
+    """The stark-verify wrap of one memory batch (2^6, 3 queries: the
+    JAX package's final-proof test shape, about 764k constraints) on the
+    card: every BN254 kernel family launched, verify_final_proof true."""
+    import dataclasses
+
+    from zkevm_prover_tpu_torch.ops import bn254_cuda
+    from zkevm_prover_tpu_torch.prover import Prover
+
+    pv = Prover(n_bits={"memory": 6}, n_queries=3, device=card)
+    bp = pv.gen_batch_proof(_final_memory_publics())
+    before = dict(bn254_cuda.launches)
+    fp = pv.gen_final_proof(pv.aggregate_tree([bp]))
+    assert fp.groth16["system"] == "groth16-stark"
+    ran = {k: bn254_cuda.launches[k] - before[k] for k in before}
+    assert all(ran.values()), ran
+    assert pv.verify_final_proof(fp)
+    assert not pv.verify_final_proof(dataclasses.replace(
+        fp, stark_publics=[fp.stark_publics[0] + 1] + fp.stark_publics[1:]))
+
+
+def test_final_proof_request_on_card(card):
+    """genFinalProof through the request queue on the card (digest mode)."""
+    from zkevm_prover_tpu_torch.prover import Prover, ProverRequest
+
+    pv = Prover(n_bits=9, final_snark="digest", device=card)
+    bp = pv.gen_batch_proof(_final_memory_publics())
+    req = ProverRequest("genFinalProof", pv.aggregate_tree([bp]))
+    pv.submit_request(req)
+    fp = pv.wait_for_request(req.uuid, timeout=600)
+    assert pv.verify_final_proof(fp)
+    fp.publics_digest ^= 1
+    assert not pv.verify_final_proof(fp)

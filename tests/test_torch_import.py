@@ -58,6 +58,7 @@ def test_port_imports_without_jax():
     assert {f"zkevm_prover_tpu_torch.hashdb.{m}" for m in hashdb} <= names
     assert {f"zkevm_prover_tpu_torch.hashdb64.{m}" for m in hashdb64} <= names
     assert {f"zkevm_prover_tpu_torch.{m}" for m in ENTRY_MODULES} <= names
+    assert {f"zkevm_prover_tpu_torch.{m}" for m in SNARK_MODULES} <= names
 
 
 # the modules of the Main SM and combined-AIR slice
@@ -153,6 +154,46 @@ def test_entry_modules_import_and_run_without_jax_or_jax_package():
             f"for m in {ENTRY_MODULES!r}:\n"
             "    importlib.import_module('zkevm_prover_tpu_torch.' + m)\n"
             + _ENTRY_DRIVE)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+# the modules of the SNARK wrap's slice
+SNARK_MODULES = ("ops.bn254_device", "ops.bn254_cuda", "ops.msm", "snark",
+                 "snark.r1cs", "snark.groth16", "snark.gadgets",
+                 "snark.stark_verifier_circuit", "snark.plonk",
+                 "snark.fflonk", "snark.export")
+
+# the digest circuit's Groth16 and a plonk proof on the CPU twins
+_SNARK_DRIVE = """
+import torch
+torch.set_num_threads(1)
+from zkevm_prover_tpu_torch.prover import Prover, PublicInputs
+from zkevm_prover_tpu_torch.prover.prover import AggregatedProof
+prover = Prover(n_bits=9, device="cpu")
+agg = AggregatedProof(publics=PublicInputs(new_state_root="0x" + "22" * 32),
+                      children=[])
+for snark in ("digest", "plonk"):
+    fp = prover.gen_final_proof(agg, snark=snark)
+    assert prover.verify_final_proof(fp), snark
+assert not any(k == "zkevm_prover_tpu" or k.startswith("zkevm_prover_tpu.")
+               or k.split(".")[0] == "jax"
+               for k in sys.modules if sys.modules[k] is not None)
+"""
+
+
+def test_snark_modules_import_and_run_without_jax_or_jax_package():
+    """Each module of the SNARK slice imports, and the final wrap's digest
+    and plonk modes prove and verify, in a process where neither `jax` nor
+    `zkevm_prover_tpu` can be imported."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['jaxlib'] = None\n"
+            "sys.modules['zkevm_prover_tpu'] = None\n"
+            f"for m in {SNARK_MODULES!r}:\n"
+            "    importlib.import_module('zkevm_prover_tpu_torch.' + m)\n"
+            + _SNARK_DRIVE)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -34,7 +34,7 @@ from zkevm_prover_tpu_torch.prover import (ProofInput, Prover,
                                            ProverRequest, PublicInputs,
                                            checkpoint)
 from zkevm_prover_tpu_torch.prover.input import L1Data
-from zkevm_prover_tpu_torch.prover.prover import UNPORTED
+from zkevm_prover_tpu_torch.prover.prover import AggregatedProof
 from zkevm_prover_tpu_torch.stark.proof import StarkProof
 from zkevm_prover_tpu_torch.stark.verifier import VerifyError
 
@@ -187,14 +187,30 @@ def test_request_queue(prover, batch):
         prover.wait_for_request("no-such-uuid", timeout=1)
 
 
-@pytest.mark.parametrize("kind", sorted(UNPORTED))
-def test_unported_requests_raise(prover, kind):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        prover._dispatch(ProverRequest(kind, None))
-    req = ProverRequest(kind, None)
+def test_final_proof_request_served():
+    """genFinalProof through the request queue: the digest wrap of two
+    chained publics, its Groth16 proof verified and a tampered digest
+    rejected."""
+    a = PublicInputs(old_state_root="0x" + "11" * 32,
+                     new_state_root="0x" + "22" * 32,
+                     new_acc_input_hash="0x" + "33" * 32,
+                     old_batch_num=7, new_batch_num=8, chain_id=1000)
+    b = dataclasses.replace(a, old_state_root=a.new_state_root,
+                            new_state_root="0x" + "44" * 32,
+                            old_acc_input_hash=a.new_acc_input_hash,
+                            new_acc_input_hash="0x" + "55" * 32,
+                            old_batch_num=8, new_batch_num=9)
+    prover = Prover(n_bits=9, final_snark="digest", device="cpu")
+    agg = prover.gen_aggregated_proof(AggregatedProof(a, []),
+                                      AggregatedProof(b, []))
+    req = ProverRequest("genFinalProof", agg)
     prover.submit_request(req)
-    with pytest.raises(RuntimeError, match="NotImplementedError"):
-        prover.wait_for_request(req.uuid, timeout=30)
+    fp = prover.wait_for_request(req.uuid, timeout=300)
+    assert fp.publics_digest == prover.publics_digest(agg.publics)
+    assert prover.verify_final_proof(fp)
+    fp.publics_digest ^= 1
+    assert not prover.verify_final_proof(fp)
+    assert prover.metrics.snapshot()["PROVER_GENFINALPROOF"]["count"] == 1
 
 
 def test_prover_needs_cuda_unless_told(monkeypatch):

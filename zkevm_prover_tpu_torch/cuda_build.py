@@ -34,8 +34,11 @@ BUILD = PKG / "build"
 # kernel library name -> its source under csrc/ (poseidon_gl.cu includes
 # the 2d, mxu, mxu24, blocked and 1d kernels: one translation unit, one
 # constant set; hash.cu holds Keccak-f and the SHA-256 and Blake2b
-# compressions)
-KERNELS = {"poseidon_gl": "poseidon_gl.cu", "hash": "hash.cu"}
+# compressions; bn254.cu the SNARK wrap's G1 MSM and fixed-base kernels
+# and the Fr NTT, bn254_g2.cu the same source's G2 kernels, built apart so
+# that the two nvcc runs overlap)
+KERNELS = {"poseidon_gl": "poseidon_gl.cu", "hash": "hash.cu",
+           "bn254": "bn254.cu", "bn254_g2": "bn254_g2.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,20 +1,24 @@
 """The Prover — request queue + proof pipeline orchestration.
 
-Port of `zkevm_prover_tpu/prover/prover.py` less the final SNARK wrap:
-`BatchProof`, `AggregatedProof`, `RecursiveNode`, `ProverRequest`, the
-request queue (`submit_request`, `wait_for_request`, its thread),
-`process_batch`, `gen_batch_proof` (the action-list path and the ROM path),
-`gen_batch_proof_from_commit`, `compress_proof` (the batch re-proved under
-BN128 commitments), the aggregation (`gen_aggregated_proof`,
-`aggregate_tree`, `verify_aggregated_proof`), the recursion
-(`wrap_batch_recursive`, `aggregate_recursive`, `verify_recursive`) and
-`verify_batch_proof`, on `device` (CUDA unless told otherwise).
-genFinalProof needs the SNARK wrap, not ported yet: its request raises.
+Port of `zkevm_prover_tpu/prover/prover.py`: `BatchProof`,
+`AggregatedProof`, `RecursiveNode`, `FinalProof`, `ProverRequest`, the
+request queue (`submit_request`, `wait_for_request`, its thread) serving
+every request type, `process_batch`, `gen_batch_proof` (the action-list
+path and the ROM path), `gen_batch_proof_from_commit`, `compress_proof`
+(the batch re-proved under BN128 commitments), the aggregation
+(`gen_aggregated_proof`, `aggregate_tree`, `verify_aggregated_proof`), the
+recursion (`wrap_batch_recursive`, `aggregate_recursive`,
+`verify_recursive`), the final SNARK wrap (`gen_final_proof` in the
+stark-verify, digest, plonk and fflonk modes, `gen_final_proof_recursive`,
+`verify_final_proof`, `verify_final_proof_recursive`) and
+`verify_batch_proof`, on `device` (CUDA unless told otherwise): the SNARKs'
+CRS, FFTs and MSMs run on the kernels of csrc/bn254.cu there.
 `metrics` times each stage under the JAX package's labels
 (EXECUTOR_EXECUTE_BATCH_PROOF, STARK_PROOF_BATCH_PROOF,
 STARK_RECURSIVE_1_PROOF, STARK_RECURSIVE_2_PROOF, STARK_RECURSIVE_F_PROOF,
-PROVER_<REQUEST TYPE>) and, in the port, the checkpoint's write
-(SAVE_CM_POLS_BATCH_PROOF).
+STARK_FINAL_CIRCUIT, RAPID_SNARK, PROVER_<REQUEST TYPE>) and, in the port,
+the checkpoint's write (SAVE_CM_POLS_BATCH_PROOF) and the final wrap's
+Groth16 setup (GROTH16_SETUP_FINAL_PROOF).
 
 Two aggregation pipelines, as in the JAX package:
 
@@ -24,13 +28,18 @@ Two aggregation pipelines, as in the JAX package:
                                  inside a fixed-shape recursive STARK)
       -> aggregate_recursive    (recursive2: binary tree of 2->1 joins
                                  with in-circuit publics chaining)
+      -> gen_final_proof_recursive (recursiveF: the root trace re-proven
+                                 under BN128 commitments + ONE fixed
+                                 Groth16 over its verifier circuit)
   * the host join (genAggregatedProof): gen_aggregated_proof checks that
-    two proofs chain and carries both children verbatim.
+    two proofs chain and carries both children verbatim;
+    gen_final_proof wraps it (stark-verify: one Groth16 whose circuit
+    verifies every leaf's STARKs re-proven under BN128).
 
 Reference: src/prover/prover.cpp — pending/current/completed request maps
 served by a proverThread (prover.cpp:182-260), genBatchProof (:392),
 genAggregatedProof with publics-chaining checks (:676, :700-740),
-processBatch fast path (:351).
+genFinalProof SNARK wrap (:827), processBatch fast path (:351).
 """
 
 from __future__ import annotations
@@ -43,16 +52,11 @@ import numpy as np
 
 from .. import resolve_device
 from ..executor import Executor
+from ..ops import bn254, keccak
+from ..snark import R1CS, groth16_prove, groth16_setup, groth16_verify
 from ..stark.verifier import verify as stark_verify
 from ..utils import TimeMetricStorage, timer, zklog
 from .input import ProofInput, PublicInputs
-
-# request types whose stages are not ported yet, and the JAX package's
-# modules they need
-UNPORTED = {
-    "genFinalProof": "the SNARK wrap (snark/, ops/bn254_device.py, "
-                     "ops/msm.py)",
-}
 
 
 def _fea_publics_hex(limbs: list[int]) -> str:
@@ -104,9 +108,18 @@ class RecursiveNode:
 
 
 @dataclasses.dataclass
+class FinalProof:
+    publics: PublicInputs
+    groth16: dict              # pi_a/pi_b/pi_c
+    publics_digest: int
+    stark_publics: list = None  # [verkeys..., stark publics...] when the
+    #                             final circuit verifies the STARKs
+
+
+@dataclasses.dataclass
 class ProverRequest:
     type: str                  # genBatchProof / genAggregatedProof /
-    #                            processBatch / UNPORTED
+    #                            genFinalProof / processBatch
     payload: object
     uuid: str = dataclasses.field(default_factory=lambda: str(uuidlib.uuid4()))
     result: object = None
@@ -129,17 +142,36 @@ def _takes_rom_path(inp: ProofInput) -> bool:
 class Prover:
     def __init__(self, n_bits: int | dict | None = None,
                  n_queries: int = 8, rom_bits: int = 14,
-                 rom_include: tuple | None = None, device=None):
+                 rom_include: tuple | None = None,
+                 final_snark: str = "stark-verify", device=None):
         """rom_bits: trace domain for ROM-path batch proofs (the reference
         fixes 2^23; the fork_9 ROM itself needs >= 2^14). rom_include: the
         SM set of the combined batch AIR (None = combined.default_include
-        (rom_bits)). Every SM's executor and prover, and the ROM path's
-        combined prover, run on `device` (CUDA unless told otherwise)."""
+        (rom_bits)). Every SM's executor and prover, the ROM path's
+        combined prover and the final SNARKs run on `device` (CUDA unless
+        told otherwise).
+
+        final_snark: the default final-proof mode — like the reference,
+        where the final protocol comes from config (the final zkey path,
+        config.cpp:268). "stark-verify" (production default: ONE Groth16
+        whose circuit verifies the leaf STARKs, the final.circom role) |
+        "digest" / "plonk" / "fflonk" (digest-binding circuits, test-
+        scale)."""
         self.device = resolve_device(device)
         self.executor = Executor(n_bits=n_bits, n_queries=n_queries,
                                  device=self.device)
         self.rom_bits = rom_bits
         self.rom_include = rom_include
+        self.final_snark = final_snark
+        self._final_setup = None    # the digest circuit's Groth16 setup
+        self._final_plonk = None
+        self._final_fflonk = None
+        self._join_g16: dict = {}   # stark-verify setups by shape
+        self._rf: dict = {}         # recursiveF BN128 provers by node kind
+        self._final_rec_g16: dict = {}
+        # the Groth16 steps' seconds, summed over this Prover's final wraps
+        # (groth16_setup's and groth16_prove's `times`)
+        self.snark_times: dict = {}
         self._rom_provers: dict = {}
         self._r1 = None             # RecursiveProver, made at the first wrap
         self._r2 = None             # Recursive2Prover, at the first join
@@ -199,11 +231,10 @@ class Prover:
             return self.gen_batch_proof(req.payload)
         if req.type == "genAggregatedProof":
             return self.gen_aggregated_proof(*req.payload)
+        if req.type == "genFinalProof":
+            return self.gen_final_proof(req.payload)
         if req.type == "processBatch":
             return self.process_batch(req.payload)
-        if req.type in UNPORTED:
-            raise NotImplementedError(
-                f"{req.type} needs {UNPORTED[req.type]}, not ported yet")
         raise ValueError(f"unknown request type {req.type}")
 
     # -- pipeline stages ----------------------------------------------------
@@ -542,3 +573,242 @@ class Prover:
             if pubs[44:48] != own:
                 return False
         return True
+
+    # -- the final SNARK wrap (genFinalProof) -------------------------------
+
+    def gen_final_proof_recursive(self, node: RecursiveNode) -> FinalProof:
+        """The recursiveF + final roles: the root recursive trace is
+        re-proven under the BN128 commitment scheme and THAT proof is
+        verified inside ONE fixed Groth16 circuit (reference
+        starkRecursiveF + final.circom, prover.cpp:827-940). Constant
+        size for any aggregation width; one setup per node kind."""
+        from ..snark import stark_verifier_circuit as svc
+        from ..stark.prover import StarkProver
+        from ..stark.setup import StarkSetup
+
+        if node.kind == "r2":
+            r2 = self._r2
+            a_proof, a_vk, b_proof, b_vk = node.wrap_args
+            s = r2._synth_pair(a_proof, a_vk, b_proof, b_vk,
+                               r2.outer_prover.verkey)
+            cc = r2._compiled[0]
+        else:
+            s = self._r1._synth(*node.wrap_args)
+            cc = self._r1._compiled[0]
+        stacked = cc.air.stack_traces(cc.trace(s))
+        if node.kind not in self._rf:
+            self._rf[node.kind] = StarkProver(StarkSetup(
+                cc.air, n_queries=self.executor.n_queries,
+                fri_fold_bits=2, hash_type="BN128"), device=self.device)
+        rf = self._rf[node.kind]
+        with timer("STARK_RECURSIVE_F_PROOF", self.metrics, log=False):
+            bn_proof = rf.prove(stacked)
+        with timer("STARK_FINAL_CIRCUIT", self.metrics, log=False):
+            r1cs, w, pubs = svc.build(rf.setup, rf.verkey, bn_proof)
+        if node.kind not in self._final_rec_g16:
+            with timer("GROTH16_SETUP_FINAL_PROOF", self.metrics, log=False):
+                self._final_rec_g16[node.kind] = groth16_setup(
+                    r1cs, device=self.device, times=self.snark_times)
+        g16 = self._final_rec_g16[node.kind]
+        digest = self.publics_digest(node.publics)
+        with timer("RAPID_SNARK", self.metrics, log=False):
+            proof = groth16_prove(g16, w, times=self.snark_times)
+        proof = {"system": "groth16-recursive", "kind": node.kind, **proof}
+        return FinalProof(publics=node.publics, groth16=proof,
+                          publics_digest=digest, stark_publics=pubs)
+
+    def verify_final_proof_recursive(self, fp: FinalProof) -> bool:
+        if fp.publics_digest != self.publics_digest(fp.publics):
+            return False
+        kind = fp.groth16.get("kind")
+        if kind not in self._final_rec_g16:
+            return False
+        rf = self._rf[kind]
+        # the circuit publics open with the recursiveF verkey, and the
+        # batch publics ride inside the STARK publics section
+        if fp.stark_publics[0] != int(rf.verkey):
+            return False
+        pubs = [int(v) for v in fp.stark_publics[1:45]]
+        if _fea_publics_hex(pubs[0:8]) != fp.publics.old_state_root:
+            return False
+        if _fea_publics_hex(pubs[19:27]) != fp.publics.new_state_root:
+            return False
+        return groth16_verify(self._final_rec_g16[kind], fp.stark_publics,
+                              fp.groth16)
+
+    def publics_digest(self, pub: PublicInputs) -> int:
+        payload = (
+            bytes.fromhex(pub.old_state_root[2:])
+            + bytes.fromhex(pub.new_state_root[2:])
+            + bytes.fromhex(pub.old_acc_input_hash[2:])
+            + bytes.fromhex(pub.new_acc_input_hash[2:])
+            + pub.old_batch_num.to_bytes(8, "big")
+            + pub.new_batch_num.to_bytes(8, "big")
+            + pub.chain_id.to_bytes(8, "big")
+        )
+        return int.from_bytes(keccak.keccak256(payload), "big") % bn254.R
+
+    def _final_circuit(self):
+        """Digest-binding circuit: public = digest, witness = (s, inv) with
+        s·(s·inv - 1) = 0 ∧ s = digest (the final.circom role, minimal)."""
+        if self._final_setup is None:
+            b = R1CS.builder(n_public=1)
+            s = b.alloc()
+            inv = b.alloc()
+            t = b.mul(s, inv)        # t = s·inv
+            b.constrain({s: 1}, {t: 1}, {s: 1})   # s·t = s
+            b.constrain({s: 1}, {0: 1}, {1: 1})   # s == digest (public slot 1)
+            self._final_setup = groth16_setup(b.build(), device=self.device)
+        return self._final_setup
+
+    def _final_circuit_plonk(self):
+        """The digest-binding statement as a PLONK circuit (the Fflonk-role
+        alternative final SNARK, snark/plonk.py)."""
+        if self._final_plonk is None:
+            from ..snark import plonk
+
+            b = plonk.Builder(n_public=1)
+            s = b.alloc()
+            inv = b.alloc()
+            t = b.mul(s, inv)
+            b._gate(1, bn254.R - 1, 0, 0, 0, s, t, 0)  # s·t - s = 0
+            b.assert_equal(s, 1)                        # s == digest public
+            self._final_plonk = plonk.plonk_setup(b.build(),
+                                                  device=self.device)
+        return self._final_plonk
+
+    def _final_circuit_fflonk(self):
+        """The digest-binding statement under fflonk combined commitments —
+        the reference's DEFAULT final SNARK (final.fflonk.zkey,
+        config.cpp:268; prover.cpp:931 dispatch)."""
+        if self._final_fflonk is None:
+            from ..snark import fflonk
+
+            b = fflonk.Builder(n_public=1)
+            s = b.alloc()
+            inv = b.alloc()
+            t = b.mul(s, inv)
+            b._gate(1, bn254.R - 1, 0, 0, 0, s, t, 0)  # s·t - s = 0
+            b.assert_equal(s, 1)                        # s == digest public
+            self._final_fflonk = fflonk.fflonk_setup(b.build(),
+                                                     device=self.device)
+        return self._final_fflonk
+
+    def _leaf_batches(self, node) -> list:
+        if isinstance(node, BatchProof):
+            return [node]
+        out = []
+        for c in node.children:
+            out += self._leaf_batches(c)
+        return out
+
+    def gen_final_proof_stark(self, agg) -> FinalProof:
+        """The production-shape final wrap: ONE Groth16 proof whose
+        circuit VERIFIES every leaf batch's STARKs (re-proven under the
+        BN128 scheme — the recursiveF role) — reference final.circom over
+        the recursivef verifier (prover.cpp:827-940). The publics
+        chaining between leaves stays checked at aggregation time
+        (gen_aggregated_proof); the digest binds the joined publics."""
+        from ..snark import stark_verifier_circuit as svc
+
+        leaves = self._leaf_batches(agg)
+        items, names = [], []
+        for bp in leaves:
+            rec = self.compress_proof(bp)
+            for name in sorted(rec):
+                prover, proof = rec[name]
+                items.append((prover.setup, int(prover.verkey), proof))
+                names.append(name)
+        with timer("STARK_FINAL_CIRCUIT", self.metrics, log=False):
+            r1cs, w, pubs = svc.build_join(items)
+        key = tuple(
+            (nm, st.n_bits, st.n_queries, tuple(st.fri_steps))
+            for nm, (st, _, _) in zip(names, items))
+        if key not in self._join_g16:
+            # the FIXED circuit: one Groth16 setup per shape tuple
+            with timer("GROTH16_SETUP_FINAL_PROOF", self.metrics, log=False):
+                self._join_g16[key] = groth16_setup(
+                    r1cs, device=self.device, times=self.snark_times)
+        g16 = self._join_g16[key]
+        digest = self.publics_digest(agg.publics)
+        with timer("RAPID_SNARK", self.metrics, log=False):
+            proof = groth16_prove(g16, w, times=self.snark_times)
+        proof = {"system": "groth16-stark", "sm_names": names, **proof}
+        return FinalProof(publics=agg.publics, groth16=proof,
+                          publics_digest=digest, stark_publics=pubs)
+
+    def gen_final_proof(self, agg, snark: str | None = None) -> FinalProof:
+        """Final SNARK wrap. snark=None takes the prover's configured
+        default (self.final_snark) — "stark-verify" unless overridden, the
+        production path: the Groth16 circuit VERIFIES the STARKs rather
+        than a host-checked digest (reference final.circom over the
+        recursivef verifier, prover.cpp:827-940). A RecursiveNode (from
+        the recursive1/recursive2 aggregation tree) routes to the
+        recursiveF re-proof wrap."""
+        if snark is None:
+            snark = self.final_snark
+        if isinstance(agg, RecursiveNode):
+            return self.gen_final_proof_recursive(agg)
+        if snark == "stark-verify":
+            return self.gen_final_proof_stark(agg)
+        digest = self.publics_digest(agg.publics)
+        s = digest
+        inv = pow(s, bn254.R - 2, bn254.R) if s else 0
+        if snark == "plonk":
+            from ..snark import plonk
+
+            setup = self._final_circuit_plonk()
+            assign = [0, digest, s, inv, s * inv % bn254.R]
+            with timer("RAPID_SNARK", self.metrics, log=False):
+                proof = plonk.plonk_prove(setup, assign)
+            proof = {"system": "plonk", **proof}
+        elif snark == "fflonk":
+            from ..snark import fflonk
+
+            setup = self._final_circuit_fflonk()
+            assign = [0, digest, s, inv, s * inv % bn254.R]
+            with timer("RAPID_SNARK", self.metrics, log=False):
+                proof = fflonk.fflonk_prove(setup, assign)
+            proof = {"system": "fflonk", **proof}
+        else:
+            setup = self._final_circuit()
+            w = [1, digest, s, inv, s * inv % bn254.R]
+            with timer("RAPID_SNARK", self.metrics, log=False):
+                proof = groth16_prove(setup, w)
+        return FinalProof(publics=agg.publics, groth16=proof,
+                          publics_digest=digest)
+
+    def verify_final_proof(self, fp: FinalProof) -> bool:
+        if fp.publics_digest != self.publics_digest(fp.publics):
+            return False
+        if isinstance(fp.groth16, dict) and \
+                fp.groth16.get("system") == "groth16-stark":
+            names = fp.groth16["sm_names"]
+            # the circuit publics must open with OUR verkeys — a proof
+            # against junk trees would verify otherwise
+            expected = [int(self.executor.prover(n, "BN128").verkey)
+                        for n in names]
+            if fp.stark_publics[:len(expected)] != expected:
+                return False
+            key = None
+            for k in self._join_g16:
+                if tuple(nm for nm, *_ in k) == tuple(names):
+                    key = k
+            if key is None:
+                return False
+            return groth16_verify(self._join_g16[key], fp.stark_publics,
+                                  fp.groth16)
+        if isinstance(fp.groth16, dict) and \
+                fp.groth16.get("system") == "plonk":
+            from ..snark import plonk
+
+            return plonk.plonk_verify(self._final_circuit_plonk(),
+                                      [fp.publics_digest], fp.groth16)
+        if isinstance(fp.groth16, dict) and \
+                fp.groth16.get("system") == "fflonk":
+            from ..snark import fflonk
+
+            return fflonk.fflonk_verify(self._final_circuit_fflonk(),
+                                        [fp.publics_digest], fp.groth16)
+        return groth16_verify(self._final_circuit(), [fp.publics_digest],
+                              fp.groth16)

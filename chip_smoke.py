@@ -7,7 +7,10 @@ Phases (any failure exits nonzero; no phase catches and continues):
  1. card line: name and power limit from nvidia-smi;
  2. build every CUDA kernel of the port from `zkevm_prover_tpu_torch/csrc`
     (one nvcc per library source, all at once: the poseidon_gl library,
-    the hash library, csrc/hash.cu, and the BN254 library, csrc/bn254.cu);
+    the hash library, csrc/hash.cu, the BN254 libraries, csrc/bn254.cu
+    and bn254_g2.cu, and the STARK library, csrc/stark.cu); from here on
+    `expr.eval_array` over card tensors and `prover.calculate_z` of card
+    tensors are counted, and must not run outside phase 3e's comparisons;
  3. every Poseidon mode's kernel (`poseidon_cuda.MODES`) against the plain
     torch permutation on the card, bit for bit: the r05 batch (pinned
     checksum), 515 random + 2 edge states, 2^22 states and a ragged
@@ -109,10 +112,10 @@ Phases (any failure exits nonzero; no phase catches and continues):
     proof's recursive1 wrap at 2^13 (`stark.recursive.RecursiveProver`),
     each card == CPU, byte for byte, and each verified on the card;
  5b. the combined batch at full width: `executor.examples.rom_batch` at
-    2^`ROM_BITS` (16) over the 2^20-key tree, its ROM at the fork-9
+    2^`ROM_BITS` (17) over the 2^20-key tree, its ROM at the fork-9
     e2e vector's per-step op rates, closed on the scarcest bound SM;
     `combined.execute_batch` (host seconds of Main and each co-SM),
-    `build_batch_air(rom, 16, include=default_include(16))` (695
+    `build_batch_air(rom, 17, include=default_include(17))` (695
     committed columns: Main and the eight bound co-SMs), `StarkSetup`,
     one `StarkProver.prove` (its phases, peak device memory) and
     `verify`; each SM's fill and the counter that closed the batch; a
@@ -122,13 +125,23 @@ Phases (any failure exits nonzero; no phase catches and continues):
     permutation's constraints and no other; the chaining publics read
     out of the proof equal the executor's old and new state roots.
     Counters zeroed just before the prove and read after `verify`: the
-    fused Merkle kernel and mxu96 must have run, and no other mode's
-    kernel;
+    fused Merkle kernel, mxu96 and the two STARK kernels must have run,
+    and no other mode's kernel;
+ 3e. (after 5b) the STARK kernels (csrc/stark.cu, `check_stark`) on the
+    combined AIR of 5b's prover over random sections: C * Zi and the FRI
+    sums at the extended rows, the lookups' f/t and the num/den at the
+    trace rows and num/den at 2^17 + 37 rows, each through
+    dag_eval_kernel against `dag.run_plain` on the card, bit for bit, C *
+    Zi also against `expr.eval_array`; the grand product of all the AIR's
+    arguments in one launch against `calculate_z` of each, and of random
+    base and GL3 operands at 2^10, 2^17, 2^20 and 2^20 + 37 and with a
+    zero den; each timed beside its twin and its bound (`dag_bound`,
+    `grand_product_bound`);
  5c. the recursion over it (`run_recursion`): batch B, the generator's
     next ROM (seed `ROM_SEED` + 1) over the state batch A (phase 5b's)
-    left, executed and proved (its prove's seconds and phases beside A's
-    first prove; under torch.profiler until the SNARK wrap joined, whose
-    event walk took minutes) and verified, its publics chained on A's;
+    left, executed and proved under torch.profiler (its prove's seconds,
+    phases, device events, busy time, idle share and top device ops
+    beside A's first prove) and verified, its publics chained on A's;
     then `Prover(device="cuda")`:
     `wrap_batch_recursive` of A and of B (recursive1, its circuit at the
     smallest power of two that holds it, `gl_circuit.rows_needed`) and
@@ -139,8 +152,8 @@ Phases (any failure exits nonzero; no phase catches and continues):
     claims, publics and rows; the host seconds of synthesis, compile_air,
     setup and trace; each outer prove's seconds, phases and peak device
     memory; the proof sizes. Counters zeroed before the first wrap, read
-    after the last verify: the fused Merkle kernel and mxu96 must have
-    run, and no other mode's kernel;
+    after the last verify: the fused Merkle kernel, mxu96 and the two
+    STARK kernels must have run, and no other mode's kernel;
  5d. the SNARK wrap (`run_final_wrap`) at the JAX package's final-proof
     test shape: two chained memory batches through `Prover(n_bits=
     {"memory": 6}, n_queries=3, device="cuda")`, `gen_aggregated_proof`,
@@ -184,14 +197,16 @@ Phases (any failure exits nonzero; no phase catches and continues):
     Merkle kernel) and re-proved under every other mode (through that
     mode's permutation and never the fused kernel), counters zeroed before
     and read after each; every proof must equal phase 5's byte for byte;
- 7. a kernels line (JSON: each mode's kernel, the fused Merkle kernel,
-    the three hash kernels and the six BN254 kernel families, its launches
-    on the main paths, summed and by path (the co-processor batch, the
-    state tree, the storage batch, the hash batch, the combined batch, the
-    recursion; the BN254 kernels' on the final wrap; Blake2b's are 0 on
-    every path, since nothing calls it outside its checks), its time, its
-    bound and its plain version's time) and a final line
-    {"ok": true, "device": {...}}.
+ 7. no plain chain ran on the card's paths; a kernels line (JSON: each
+    mode's kernel, the fused Merkle kernel, the three hash kernels, the
+    six BN254 kernel families and the two STARK kernels, its launches on
+    the main paths, summed and by path (the co-processor batch, the state
+    tree, the storage batch, the hash batch, the combined batch, the
+    recursion; the BN254 kernels' on the final wrap, the STARK kernels'
+    there too; Blake2b's are 0 on every path, since nothing calls it
+    outside its checks), its time, its bound and its plain version's
+    time) and a final line {"ok": true, "device": {...}}. Every path that
+    proves a STARK must read launches of both STARK kernels.
 
 It needs the CUDA toolkit (nvcc) and one card; without CUDA it exits
 nonzero before printing anything.
@@ -201,6 +216,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -304,12 +320,61 @@ def merkle_bound(h: int, w: int) -> tuple[float, str]:
     return _bound(merkle_perms(h, w), h * w * 8 + 32 * (2 * h - 1))
 
 
+# The least work of the STARK kernels (csrc/stark.cu), in 32-bit multiply-
+# adds at the IMAD rate: a field product is a widening 64 x 64 product,
+# four 32 x 32 products of 2 IMADs (lo and hi) each; a GL3 product at
+# least 6 of them (Karatsuba), a base x GL3 one 3. A row program's
+# products per row are its MUL instructions so counted; its bytes every
+# column it loads read once and every output column written once, per
+# row. A grand-product element needs at least 3 products of den's field
+# for the batch inversion (Montgomery's trick), one for num / den and one
+# for the running product, against num, den and z moved once.
+FIELD_PRODUCT_IMAD = 4 * 2
+
+
+def _products(da: int, db: int) -> int:
+    """Base-field products in the least product of a dim-da and a dim-db
+    value."""
+    return {(1, 1): 1, (1, 3): 3, (3, 1): 3, (3, 3): 6}[(da, db)]
+
+
+def dag_bound(prog, rows: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for `prog` (a stark.dag.Program) over
+    `rows` rows."""
+    from zkevm_prover_tpu_torch.stark import dag
+
+    products, cols, out_cols = 0, set(), 0
+    for op, _, a, b in prog.code.tolist():
+        if op & ~3 == dag.MUL:
+            products += _products(3 if op & 2 else 1, 3 if op & 1 else 1)
+        elif op <= dag.LOAD3_NEXT:
+            cols.update((a, b + k) for k in range(3 if op & 1 else 1))
+        elif op in (dag.STORE1, dag.STORE3, dag.STORE13):
+            out_cols += 1 if op == dag.STORE1 else 3
+    ops_s = rows * products * FIELD_PRODUCT_IMAD / IMAD_PER_S
+    bytes_s = rows * (len(cols) + out_cols) * 8 / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def grand_product_bound(n: int, dims) -> tuple[float, str]:
+    """(least ms, what bounds it) for grand products of n rows, one per
+    (num dim, den dim) in `dims`."""
+    products = sum(3 * _products(dd, dd) + _products(nd, dd)
+                   + _products(3, max(nd, dd)) for nd, dd in dims)
+    n_bytes = sum(nd + dd + 3 for nd, dd in dims) * 8
+    ops_s = n * products * FIELD_PRODUCT_IMAD / IMAD_PER_S
+    bytes_s = n * n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
 # log2 keys of the storage batch's pre-state tree: a state of a million
 # accounts and storage slots
 TREE_BITS = 20
-# log2 rows of the combined batch AIR (phase 5b; reference: 23; 16 binds
-# the same SMs as 17, at half the prove time) and its seed
-ROM_BITS = 16
+# log2 rows of the combined batch AIR (phase 5b; reference: 23; 17 binds
+# the same SMs as 16 and is the widest that fits the card) and its seed
+ROM_BITS = 17
 ROM_SEED = 23
 
 # artifacts/bench/measure_baseline_r05.json: exact field results
@@ -318,6 +383,21 @@ R05_NTT_CHECKSUM = 8023521091960532272  # extend_pol, default_rng(0) (2^23, 4)
 
 
 _T0 = time.perf_counter()
+
+
+def _counters() -> tuple:
+    """Every kernel counter a proving path reads: the Poseidon modes' and
+    the fused commit's, the hash kernels', the STARK kernels'."""
+    from zkevm_prover_tpu_torch.ops import hash_cuda, poseidon_cuda, stark_cuda
+
+    return poseidon_cuda.launches, hash_cuda.launches, stark_cuda.launches
+
+
+def _stark_kernels_ran(path: str, launches: dict) -> None:
+    """A proving path must have evaluated its phases' programs through
+    dag_eval_kernel and its grand products through grand_product."""
+    if launches["dag_eval"] == 0 or launches["grand_product"] == 0:
+        _fail(f"{path}: the STARK kernels did not run: {launches}")
 
 
 def _log(msg: str) -> None:
@@ -997,6 +1077,7 @@ def run_final_wrap(torch, pcu, hcu):
     constraints, signals and domain, the host and card seconds of each
     step, the peak device memory and each kernel's launches, counted with
     every counter zeroed just before gen_final_proof. Returns them."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda as scu
     import dataclasses
 
     from torch.autograd import DeviceType
@@ -1015,7 +1096,7 @@ def run_final_wrap(torch, pcu, hcu):
     if not prover.verify_aggregated_proof(agg):
         _fail("final wrap: the two memory batches do not verify")
     batches_s = time.perf_counter() - t_start
-    for counters in (pcu.launches, hcu.launches, bcu.launches):
+    for counters in (*_counters(), bcu.launches):
         for k in counters:
             counters[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1025,7 +1106,8 @@ def run_final_wrap(torch, pcu, hcu):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {**pcu.launches, **hcu.launches, **bcu.launches}
+    launches = {**pcu.launches, **hcu.launches, **bcu.launches,
+                **scu.launches}
     busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
                if e.device_type() == DeviceType.CUDA) / 1e9
     if fp.groth16.get("system") != "groth16-stark":
@@ -1049,6 +1131,7 @@ def run_final_wrap(torch, pcu, hcu):
               "fr_ntt", "fr_pointwise"):
         if launches[k] == 0:
             _fail(f"final wrap: the {k} kernel did not run: {launches}")
+    _stark_kernels_ran("final wrap", launches)
     m = prover.metrics.snapshot()
     host_s = {k: round(m[k]["total_s"], 3) for k in ("STARK_RECURSIVE_F_PROOF",
                                       "STARK_FINAL_CIRCUIT",
@@ -1363,6 +1446,7 @@ def run_batch(torch, pcu, hcu, bits: int, arith_bits: int, path: str):
     in the prove and the verification. Each SM's AIR build and setup, its
     prove's wall and its peak device memory are read by wrapping the
     executor's `prover` for the one call."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda as scu
     import os
 
     from zkevm_prover_tpu_torch.prover import Prover
@@ -1412,7 +1496,7 @@ def run_batch(torch, pcu, hcu, bits: int, arith_bits: int, path: str):
         return sm_prover
 
     ex.prove_traces, ex.prover = keep, timed_prover
-    for counters in (pcu.launches, hcu.launches):
+    for counters in _counters():
         for k in counters:
             counters[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1461,6 +1545,7 @@ def run_batch(torch, pcu, hcu, bits: int, arith_bits: int, path: str):
         _fail("the fused Merkle kernel was not launched on the main path")
     if launches["mxu96"] == 0:
         _fail("the mxu96 kernel was not launched on the main path")
+    _stark_kernels_ran("batch", scu.launches)
     if any(n for mode, n in launches.items() if mode not in ("mxu96",
                                                              "merkle")):
         _fail(f"another mode's kernel ran under MODE mxu96: {launches}")
@@ -1491,7 +1576,7 @@ def run_batch(torch, pcu, hcu, bits: int, arith_bits: int, path: str):
          "PublicInputs.acc_input_hash() (the entry point's plumbing) == the "
          "JAX package's pinned value (the recurrence); a tampered proof of "
          f"each of the {len(bp.sm_proofs)} SMs rejected")
-    return prover, bp, proved, {**launches, **hcu.launches}
+    return prover, bp, proved, {**launches, **hcu.launches, **scu.launches}
 
 
 def check_checkpoint(path: str, proved: dict) -> dict:
@@ -1570,6 +1655,15 @@ def _device_seconds(prof) -> float:
                if e.device_type() == DeviceType.CUDA) / 1e9
 
 
+def _kernel_label(name: str) -> str:
+    """A device event's kernel without its template arguments: the last
+    functor or kernel function its name holds (MulFunctor,
+    bitwise_and_kernel_cuda, dag_eval_kernel, ...), else its first 60
+    characters."""
+    found = re.findall(r"(\w+(?:Functor|_kernel_cuda|_kernel))\b", name)
+    return found[-1] if found else name[:60]
+
+
 def _rss_gib() -> float:
     """This process's resident memory now."""
     import os
@@ -1587,6 +1681,7 @@ def run_state_tree(torch, pcu, hcu, bits: int):
     back through `Smt.get`. The keys are those the Main SM derives from
     random key registers. Returns the tree's Smt, the tree and the
     launches."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda as scu
     from torch.profiler import ProfilerActivity, profile
 
     from zkevm_prover_tpu_torch.executor import examples
@@ -1600,7 +1695,7 @@ def run_state_tree(torch, pcu, hcu, bits: int):
     _log(f"state tree 2^12 keys: card root == CPU root {small['cpu'].root}")
 
     db = Database()
-    for counters in (pcu.launches, hcu.launches):
+    for counters in _counters():
         for k in counters:
             counters[k] = 0
     rss0 = _rss_gib()
@@ -1631,7 +1726,7 @@ def run_state_tree(torch, pcu, hcu, bits: int):
          f"{launches['mxu96']} mxu96 launches; host RSS {rss0:.2f} -> "
          f"{_rss_gib():.2f} GiB; Smt.get of 64 present "
          "keys gave their values, of 16 absent keys 0")
-    return smt, tree, {**launches, **hcu.launches}
+    return smt, tree, {**launches, **hcu.launches, **scu.launches}
 
 
 def run_storage_batch(torch, pcu, hcu, smt, tree, bits: int) -> dict:
@@ -1642,6 +1737,7 @@ def run_storage_batch(torch, pcu, hcu, smt, tree, bits: int) -> dict:
     ClimbKey at 2^`bits`; then `verify_all`, and a tampered storage proof
     must be rejected. Returns the launches of the proofs and the
     verification."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda as scu
     from zkevm_prover_tpu_torch.executor import BatchActions, Executor
     from zkevm_prover_tpu_torch.executor import examples
     from zkevm_prover_tpu_torch.stark.proof import StarkProof
@@ -1665,7 +1761,7 @@ def run_storage_batch(torch, pcu, hcu, smt, tree, bits: int) -> dict:
          f"{make_s:.2f} s (host Smt.set/get); PoseidonG capacity {cap}")
 
     batch = BatchActions(storage=actions)
-    for counters in (pcu.launches, hcu.launches):
+    for counters in _counters():
         for k in counters:
             counters[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1699,6 +1795,7 @@ def run_storage_batch(torch, pcu, hcu, smt, tree, bits: int) -> dict:
     launches = dict(pcu.launches)
     if launches["merkle"] == 0 or launches["mxu96"] == 0:
         _fail(f"storage batch: a kernel of the path did not run: {launches}")
+    _stark_kernels_ran("storage batch", scu.launches)
     if any(n for mode, n in launches.items() if mode not in ("mxu96",
                                                              "merkle")):
         _fail(f"storage batch: another mode's kernel ran: {launches}")
@@ -1714,7 +1811,7 @@ def run_storage_batch(torch, pcu, hcu, smt, tree, bits: int) -> dict:
     _log(f"storage batch verify_all: true ({time.perf_counter() - t0:.2f} "
          f"s); a tampered storage proof rejected; kernel launches in proofs "
          f"+ verify {json.dumps({**launches, **hcu.launches})}")
-    return {**launches, **hcu.launches}
+    return {**launches, **hcu.launches, **scu.launches}
 
 
 def run_hash_batch(torch, pcu, hcu) -> dict:
@@ -1724,6 +1821,7 @@ def run_hash_batch(torch, pcu, hcu) -> dict:
     tampered proof of each SM rejected, and the single-block messages'
     PaddingKK digests against `keccak256_blocks` on the card. Returns the
     launches of every kernel on this path (counters zeroed just before)."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda as scu
     from zkevm_prover_tpu_torch.executor import examples
     from zkevm_prover_tpu_torch.ops import keccak
     from zkevm_prover_tpu_torch.stark.proof import StarkProof
@@ -1739,7 +1837,7 @@ def run_hash_batch(torch, pcu, hcu) -> dict:
          f"{ex.gate_capacity('sha256_f')}); sizes (log2 rows) "
          f"{json.dumps(batch.n_bits)}; gates {json.dumps(batch.gates)}")
     pcu.MODE = "mxu96"
-    for counters in (pcu.launches, hcu.launches):
+    for counters in _counters():
         for k in counters:
             counters[k] = 0
     t_batch = time.perf_counter()
@@ -1798,13 +1896,14 @@ def run_hash_batch(torch, pcu, hcu) -> dict:
                 ex.digests["padding_kk"][i]:
             _fail(f"keccak256_blocks of message {i} != its PaddingKK digest")
     torch.cuda.synchronize()
-    launches = {**pcu.launches, **hcu.launches}
+    launches = {**pcu.launches, **hcu.launches, **scu.launches}
     _log(f"hash batch: PaddingKK digests of the {len(single)} single-block "
          "messages == keccak256_blocks on the card; kernel launches in "
          f"proofs + verify + digests {json.dumps(launches)}")
     for kernel in ("merkle", "mxu96", "keccak_f", "sha256_compress"):
         if launches[kernel] == 0:
             _fail(f"hash batch: the {kernel} kernel was not launched")
+    _stark_kernels_ran("hash batch", launches)
     if launches["sha256_compress"] != counts["padding_sha256_capacity"]:
         _fail(f"hash batch: {launches['sha256_compress']} sha256_compress "
               f"launches, not one per PaddingSha256 block "
@@ -1835,6 +1934,7 @@ def run_rom_batch(torch, pcu, hcu, smt, tree, bits: int):
     must carry the executor's state roots. Returns the batch, the
     executor's result, the prover, its proof, the launches of every kernel
     in the prove and `verify`, and the prove's seconds."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda as scu
     from zkevm_prover_tpu_torch.executor import combined, examples
     from zkevm_prover_tpu_torch.executor.sm import main_sm, memory
     from zkevm_prover_tpu_torch.stark.proof import StarkProof
@@ -1880,7 +1980,7 @@ def run_rom_batch(torch, pcu, hcu, smt, tree, bits: int):
          f"build_batch_air {air_s:.2f} s, StarkSetup + StarkProver "
          f"{setup_s:.2f} s, stack_traces {stack_s:.2f} s (host)")
 
-    for counters in (pcu.launches, hcu.launches):
+    for counters in _counters():
         for k in counters:
             counters[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1894,16 +1994,20 @@ def run_rom_batch(torch, pcu, hcu, smt, tree, bits: int):
          f"{peak:.2f} GiB; kernel launches {json.dumps(pcu.launches)}")
     _log("rom batch phases (s): " + json.dumps(
         {k: round(v, 4) for k, v in prover.phase_times.items()}))
+    _log("rom batch peak device memory at each phase's end (GiB): "
+         + json.dumps({k: round(v, 2)
+                       for k, v in prover.phase_peak_gib.items()}))
     t0 = time.perf_counter()
     if not verify(setup, prover.verkey, proof, device="cuda"):
         _fail("verify rejected the combined batch")
     torch.cuda.synchronize()
     verify_s = time.perf_counter() - t0
-    launches = {**pcu.launches, **hcu.launches}
+    launches = {**pcu.launches, **hcu.launches, **scu.launches}
     _log(f"rom batch verify: true ({verify_s:.2f} s); kernel launches in "
          f"prove + verify {json.dumps(launches)}")
     if launches["merkle"] == 0 or launches["mxu96"] == 0:
         _fail(f"rom batch: a kernel of the path did not run: {launches}")
+    _stark_kernels_ran("rom batch", launches)
     if any(launches[mode] for mode in pcu.MODES if mode != "mxu96"):
         _fail(f"rom batch: another mode's kernel ran: {launches}")
 
@@ -2001,13 +2105,185 @@ def _log_outer(what: str, rp, wall: float, peak: float, node) -> None:
         {k: round(v, 4) for k, v in pv.phase_times.items()}))
 
 
+# The plain chains the STARK kernels replace, counted where they run on the
+# card: the proving paths must not reach them (phase 3e calls the
+# originals, kept in _PLAIN, to compare).
+PLAIN_CALLS = {"eval_array": 0, "calculate_z": 0}
+_PLAIN: dict = {}
+
+
+def _guard_plain_chains() -> None:
+    """Count `expr.eval_array` over card tensors and `prover.calculate_z`
+    of card tensors in PLAIN_CALLS."""
+    from zkevm_prover_tpu_torch.stark import expr, prover
+
+    def counted(name, on_card):
+        fn = _PLAIN[name]
+
+        def wrapper(*args, **kw):
+            if on_card(*args, **kw):
+                PLAIN_CALLS[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    _PLAIN.update(eval_array=expr.eval_array, calculate_z=prover.calculate_z)
+    expr.eval_array = counted(
+        "eval_array", lambda e, b: str(b.device).startswith("cuda"))
+    prover.calculate_z = counted("calculate_z", lambda num, den: num.is_cuda)
+
+
+def check_stark(torch, prover) -> dict:
+    """Phase 3e, the STARK kernels (csrc/stark.cu) on the combined AIR of
+    phase 5b's prover (2^`ROM_BITS` rows), over random sections: each of
+    its row programs (C * Zi and the FRI sums on the extended rows, the
+    lookups' f/t and the num/den on the trace rows, num/den again on a
+    ragged 2^bits + 37) through dag_eval_kernel against its twin
+    `dag.run_plain` on the card, bit for bit, and C * Zi also against
+    `expr.eval_array`; the grand product of every argument (num and den
+    from that num/den run, one launch) against `calculate_z` of each, and
+    of random base and GL3 operands at 2^10, 2^17, 2^20 and 2^20 + 37 and
+    with a zero den. Each timed beside its twin and its bound (`dag_bound`,
+    `grand_product_bound`); no PyTorch call computes either, so the
+    library time is none. Returns the kernels-line entries (without
+    `launches`)."""
+    from zkevm_prover_tpu_torch.ops import goldilocks as gl
+    from zkevm_prover_tpu_torch.stark import dag
+    from zkevm_prover_tpu_torch.stark import expr as ex
+    from zkevm_prover_tpu_torch.stark import prover as sp
+
+    s = prover.setup
+    rng = np.random.default_rng(31)
+
+    def u(*shape):
+        return gl.from_u64(rng.integers(0, gl.P, shape, dtype=np.uint64),
+                           "cuda")
+
+    ch = rng.integers(0, gl.P, (8, 3), dtype=np.uint64)
+    pub = [int(v) for v in rng.integers(0, gl.P, len(s.air.publics),
+                                        dtype=np.uint64)]
+    ev = rng.integers(0, gl.P, (len(s.ev_map), 3), dtype=np.uint64)
+    progs = {"quotient": (prover._prog_q, s.n_ext, prover.blowup),
+             "fri": (prover._prog_fri, s.n_ext, prover.blowup),
+             "f_t": (prover._prog_ft[0], s.n, 1),
+             "num_den": (prover._prog_num_den[0], s.n, 1),
+             "num_den_ragged": (prover._prog_num_den[0], s.n + 37, 1)}
+    times, plain, bounds = {}, {}, {}
+    for name, (prog, rows, stride) in progs.items():
+        secs = {k: u(rows, w) for k, w in s.section_width.items()}
+        secs.update(const=u(rows, s.air.n_constants), x=u(rows), zi=u(rows))
+        uni = prog.uniform_values(ch, pub, ev)
+        width = max(o.col + 3 for o in prog.outputs)
+        out = torch.full((rows, width), -1, dtype=torch.int64, device="cuda")
+        want = out.clone()
+        times[name] = _time_ms(lambda: dag.run(
+            prog, secs, uni, out, rows=rows, prime_stride=stride), reps=5)
+        t0 = time.perf_counter()
+        dag.run_plain(prog, secs, uni, want, rows=rows, prime_stride=stride)
+        torch.cuda.synchronize()
+        plain[name] = 1e3 * (time.perf_counter() - t0)
+        if not torch.equal(out, want):
+            _fail(f"dag_eval {name} at {rows} rows != dag.run_plain")
+        bounds[name] = dag_bound(prog, rows)
+        note = ""
+        if name == "quotient":
+            b = ex.ArrayBindings(
+                cm=lambda cid: prover._col(secs, cid),
+                const=lambda i: secs["const"][:, i], device="cuda",
+                challenges=gl.from_u64(ch, "cuda"),
+                publics=gl.from_u64(np.array(pub, np.uint64), "cuda"),
+                x=secs["x"], zi=secs["zi"], prime_stride=stride)
+            t0 = time.perf_counter()
+            ref = _PLAIN["eval_array"](s.c_combined * ex.Zi(), b)
+            torch.cuda.synchronize()
+            eval_ms = 1e3 * (time.perf_counter() - t0)
+            if not torch.equal(out, ref):
+                _fail("dag_eval C * Zi != eval_array")
+            del ref, b
+            note = f"; == eval_array ({eval_ms:.1f} ms)"
+        if name == "num_den":
+            nd = out
+        _log(f"dag_eval {name} ({prog.n_ops} instructions, {prog.n_slots} "
+             f"slots, chunk {prog.chunk}) at {rows} rows: kernel "
+             f"{times[name]:.3f} ms ({100 * bounds[name][0] / times[name]:.2f}"
+             f" % of bound), == run_plain ({plain[name]:.1f} ms){note}; "
+             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+        del secs, out, want
+        torch.cuda.empty_cache()
+
+    # kernel B on every argument of the AIR, num and den from the kernel
+    _, _, layout = prover._prog_num_den
+    z = torch.full((s.n, 3 * len(layout)), -1, dtype=torch.int64,
+                   device="cuda")
+    args, dims = [], []
+    for k, (nc, ndim, dc, ddim) in enumerate(layout):
+        args.append((nd[:, nc] if ndim == 1 else nd[:, nc:nc + 3],
+                     nd[:, dc] if ddim == 1 else nd[:, dc:dc + 3],
+                     z[:, 3 * k:3 * k + 3]))
+        dims.append((ndim, ddim))
+    gp_ms = _time_ms(lambda: sp.grand_products(args), reps=5)
+    t0 = time.perf_counter()
+    want = [_PLAIN["calculate_z"](num, den) for num, den, _ in args]
+    torch.cuda.synchronize()
+    gp_plain = 1e3 * (time.perf_counter() - t0)
+    if any(not torch.equal(zk, w) for (_, _, zk), w in zip(args, want)):
+        _fail("grand_product of the AIR's arguments != calculate_z")
+    gp_bound = grand_product_bound(s.n, dims)
+    _log(f"grand_product: {len(args)} arguments at 2^{s.n_bits} in one "
+         f"launch {gp_ms:.3f} ms ({100 * gp_bound[0] / gp_ms:.2f} % of "
+         f"bound), == calculate_z of each ({gp_plain:.1f} ms); bound "
+         f"{gp_bound[0]:.4f} ms ({gp_bound[1]})")
+    del nd, z, args, want
+    sizes = {}
+    for n in (1 << 10, 1 << 17, 1 << 20, (1 << 20) + 37):
+        for nd_, dd in ((1, 1), (3, 3)):
+            num = u(n) if nd_ == 1 else u(n, 3)
+            den = u(n) if dd == 1 else u(n, 3)
+            zz = torch.empty((n, 3), dtype=torch.int64, device="cuda")
+            ms = _time_ms(lambda: sp.grand_products([(num, den, zz)]))
+            if not torch.equal(zz, _PLAIN["calculate_z"](num, den)):
+                _fail(f"grand_product ({nd_}, {dd}) at {n} != calculate_z")
+            sizes[f"{n}:{nd_}{dd}"] = ms
+    for dd in (1, 3):
+        num, den = u(1 << 17, 3), (u(1 << 17) if dd == 1 else u(1 << 17, 3))
+        den[12345] = 0
+        zz = torch.empty((1 << 17, 3), dtype=torch.int64, device="cuda")
+        sp.grand_products([(num, den, zz)])
+        if not torch.equal(zz, _PLAIN["calculate_z"](num, den)) or \
+                zz[0].tolist() != [1, 0, 0] or bool(zz[1:].any()):
+            _fail(f"grand_product with a zero den (dim {dd}) != "
+                  "calculate_z's (1, 0, 0, ...)")
+    _log("grand_product == calculate_z on random base and GL3 operands at "
+         "2^10, 2^17, 2^20 and 2^20 + 37 (ms " + json.dumps(
+             {k: round(v, 4) for k, v in sizes.items()}) + ") and with a "
+         "zero den (z = (1, 0, 0, ...))")
+    torch.cuda.empty_cache()
+    return {
+        "dag_eval": {
+            "name": "stark_dag_eval", "route": "cuda",
+            "source": "zkevm_prover_tpu_torch/csrc/stark.cu",
+            "replaces": "zkevm_prover_tpu/stark/prover.py:416",
+            "max_abs_err": 0, "ms": times["quotient"],
+            "plain_ms": plain["quotient"], "bound_ms": bounds["quotient"][0],
+            "bound_by": bounds["quotient"][1], "library_ms": None,
+            "ms_by_program": times, "plain_ms_by_program": plain,
+            "bound_ms_by_program": {k: v[0] for k, v in bounds.items()}},
+        "grand_product": {
+            "name": "stark_grand_product", "route": "cuda",
+            "source": "zkevm_prover_tpu_torch/csrc/stark.cu",
+            "replaces": "zkevm_prover_tpu/stark/prover.py:125",
+            "max_abs_err": 0, "ms": gp_ms, "plain_ms": gp_plain,
+            "bound_ms": gp_bound[0], "bound_by": gp_bound[1],
+            "library_ms": None, "arguments": len(layout),
+            "log2_rows": s.n_bits, "ms_by_size": sizes}}
+
+
 def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
                   proof_a, first_s: float) -> dict:
     """Phase 5c, the recursion over the full-width combined batch: batch A
     is phase 5b's proof; batch B is the generator's next ROM
     (`rom_batch(bits, smt, tree at A's new root, ROM_SEED + 1)`) over the
-    state A left, proved (without the profiler: its event walk took
-    minutes) and verified. Each is wrapped by `Prover(device="cuda").
+    state A left, proved under torch.profiler (device events, busy time,
+    idle share, top device ops) and verified. Each is wrapped by `Prover(device="cuda").
     wrap_batch_recursive` (recursive1), the two nodes joined by
     `aggregate_recursive` (recursive2, the publics chained in the
     circuit); `verify_recursive` must accept both r1 nodes and the r2
@@ -2017,6 +2293,7 @@ def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
     and peak device memory, and the proof sizes. Counters zeroed before
     the first wrap, read after the last verify: the fused Merkle kernel
     and mxu96 must have run, and no other mode's kernel. Returns them."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda as scu
     from zkevm_prover_tpu_torch.executor import combined, examples
     from zkevm_prover_tpu_torch.prover import Prover
     from zkevm_prover_tpu_torch.prover.prover import BatchProof
@@ -2026,6 +2303,9 @@ def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
     from zkevm_prover_tpu_torch.stark.verifier import VerifyError, verify
 
     import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     bits = batch_a.n_bits
     pcu.MODE = "mxu96"
@@ -2055,13 +2335,33 @@ def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
          f"{batch_b.closed_by}, ops {json.dumps(batch_b.ops)}; "
          f"execute_batch {exec_s:.2f} s, AIR + setup {setup_s:.2f} s "
          "(host); the same AIR shape as batch A")
+    for counters in _counters():
+        for k in counters:
+            counters[k] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        proof_b = prover_b.prove(stacked)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    proof_b = prover_b.prove(stacked)
-    torch.cuda.synchronize()
-    _log(f"combined batch B 2^{bits} first prove: "
-         f"{time.perf_counter() - t0:.3f} s (batch A's {first_s:.3f} s); "
-         "phases (s): " + json.dumps(
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in events) / 1e9
+    top: dict = {}
+    for e in events:
+        label = _kernel_label(e.name())
+        top[label] = top.get(label, 0) + e.duration_ns() / 1e9
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:10]
+    walk_s = time.perf_counter() - t0
+    _log(f"combined batch B 2^{bits} first prove under torch.profiler: "
+         f"{wall:.3f} s (batch A's {first_s:.3f} s, not profiled); "
+         f"{len(events)} device events, device busy {busy:.3f} s, idle "
+         f"share {1 - busy / wall:.3f}; launches {json.dumps(scu.launches)}"
+         f"; top device ops (s) " + json.dumps(
+             [(name, round(t, 4)) for name, t in top])
+         + f"; the event walk {walk_s:.1f} s; phases (s): " + json.dumps(
              {k: round(v, 4) for k, v in prover_b.phase_times.items()}))
+    del prof, events
     del stacked
     if not verify(prover_b.setup, prover_b.verkey, proof_b, device="cuda"):
         _fail("verify rejected the combined batch B")
@@ -2081,7 +2381,7 @@ def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
          f"{a.new_state_root}, B -> {b.new_state_root}")
 
     prover = Prover(device="cuda")
-    for counters in (pcu.launches, hcu.launches):
+    for counters in _counters():
         for k in counters:
             counters[k] = 0
     nodes = []
@@ -2110,13 +2410,14 @@ def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,
             _fail(f"verify_recursive rejected the {node.kind} node")
     torch.cuda.synchronize()
     verify_s = time.perf_counter() - t0
-    launches = {**pcu.launches, **hcu.launches}
+    launches = {**pcu.launches, **hcu.launches, **scu.launches}
     _log(f"recursion: verify_recursive true for both r1 nodes and the r2 "
          f"root ({verify_s:.2f} s); root publics old root "
          f"{root.publics.old_state_root} -> new {root.publics.new_state_root}"
          f"; kernel launches {json.dumps(launches)}")
     if launches["merkle"] == 0 or launches["mxu96"] == 0:
         _fail(f"recursion: a kernel of the path did not run: {launches}")
+    _stark_kernels_ran("recursion", launches)
     if any(launches[mode] for mode in pcu.MODES if mode != "mxu96"):
         _fail(f"recursion: another mode's kernel ran: {launches}")
 
@@ -2185,6 +2486,7 @@ def run(args, torch, child, cpu_path) -> int:
     from zkevm_prover_tpu_torch.ops import poseidon_gl as pg
 
     tmp_dir = os.path.dirname(cpu_path)   # the checkpoints go here too
+    _guard_plain_chains()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2209,6 +2511,7 @@ def run(args, torch, child, cpu_path) -> int:
     hash_launches = run_hash_batch(torch, pcu, hcu)
     batch_a, res_a, rom_prover, rom_proof, rom_launches, rom_s = \
         run_rom_batch(torch, pcu, hcu, smt, tree, ROM_BITS)
+    entries.update(check_stark(torch, rom_prover))
     rec_launches = run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a,
                                  rom_prover, rom_proof, rom_s)
     del smt, tree, rom_prover, rom_proof, batch_a, res_a
@@ -2228,6 +2531,14 @@ def run(args, torch, child, cpu_path) -> int:
             path: counts[kernel] for path, counts in paths.items()}
         entries[kernel]["launches"] = sum(
             entries[kernel]["launches_by_path"].values())
+    # the STARK kernels run wherever a STARK is proved, the final wrap's
+    # BN128 re-proofs too
+    for kernel in ("dag_eval", "grand_product"):
+        entries[kernel]["launches_by_path"] = {
+            path: counts[kernel] for path, counts in
+            {**paths, "final_wrap": final_launches}.items()}
+        entries[kernel]["launches"] = sum(
+            entries[kernel]["launches_by_path"].values())
     # the BN254 kernels run on the final wrap's path alone
     for kernel in BN254_KERNELS:
         entries[kernel]["launches_by_path"] = {
@@ -2242,13 +2553,17 @@ def run(args, torch, child, cpu_path) -> int:
     del prover, bp, traces
     torch.cuda.empty_cache()
     check_small_proofs(child, cpu_path)
+    if any(PLAIN_CALLS.values()):
+        _fail(f"the plain chains ran on the card's paths: {PLAIN_CALLS}")
+    _log(f"plain chains on the card's paths: {json.dumps(PLAIN_CALLS)}")
 
     _log("chip_smoke: done")
     print(json.dumps({"kernels": [entries[m] for m in
                                   ("mxu96", "merkle", "mxu24", "mxu",
                                    "blocked", "1d", "2d", "keccak_f",
                                    "sha256_compress", "blake2b_compress",
-                                   *BN254_KERNELS)]}))
+                                   *BN254_KERNELS, "dag_eval",
+                                   "grand_product")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -858,3 +858,182 @@ def test_final_proof_request_on_card(card):
     assert pv.verify_final_proof(fp)
     fp.publics_digest ^= 1
     assert not pv.verify_final_proof(fp)
+
+
+# ---------------------------------------------------------------------------
+# the STARK prover's kernels (csrc/stark.cu): the row-program interpreter
+# against its twin `dag.run_plain`, the grand product against
+# `calculate_z`, both on the card's tensors
+# ---------------------------------------------------------------------------
+
+
+def _stark_programs(prover):
+    """(program, extended domain?) of each of the prover's programs."""
+    out = [(prover._prog_ft[0], False), (prover._prog_num_den[0], False),
+           (prover._prog_q, True), (prover._prog_fri, True),
+           (prover._prog_check, False)]
+    if prover._prog_aux is not None:
+        out.append((prover._prog_aux, False))
+    return [(p, e) for p, e in out if p.n_ops]
+
+
+def _stark_inputs(setup, rows: int, seed: int, device):
+    rng = np.random.default_rng(seed)
+    u = lambda *shape: gl.from_u64(
+        rng.integers(0, gl.P, shape, dtype=np.uint64), device)
+    secs = {k: u(rows, w) for k, w in setup.section_width.items()}
+    secs.update(const=u(rows, setup.air.n_constants), x=u(rows), zi=u(rows))
+    ch = rng.integers(0, gl.P, (8, 3), dtype=np.uint64)
+    pub = [int(v) for v in rng.integers(0, gl.P, len(setup.air.publics),
+                                        dtype=np.uint64)]
+    ev = rng.integers(0, gl.P, (len(setup.ev_map), 3), dtype=np.uint64)
+    return secs, ch, pub, ev
+
+
+def _dag_both(prog, secs, ch, pub, ev, rows, stride, device):
+    """(kernel out, twin out, kernel flags, twin flags) on the card."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda
+    from zkevm_prover_tpu_torch.stark import dag
+
+    width = max((o.col + 3 for o in prog.outputs if o.flag is None),
+                default=0)
+    uni = prog.uniform_values(ch, pub, ev)
+    res = []
+    for run in (dag.run, dag.run_plain):
+        out = torch.full((rows, width), -1, dtype=torch.int64, device=device)
+        flags = torch.zeros(max(prog.n_flags, 1), dtype=torch.int32,
+                            device=device)
+        before = stark_cuda.launches["dag_eval"]
+        run(prog, secs, uni, out, flags, rows=rows, prime_stride=stride)
+        assert stark_cuda.launches["dag_eval"] == before + (run is dag.run)
+        res.append((out, flags))
+    torch.cuda.synchronize()
+    return res[0][0], res[1][0], res[0][1], res[1][1]
+
+
+@pytest.mark.parametrize("name", ["fibonacci", "lookup", "permutation",
+                                  "connection"])
+def test_dag_kernel_matches_plain(card, name):
+    """Every program of a toy AIR's prover through dag_eval_kernel equals
+    its twin on the card, on its domain and on a ragged 1,000 rows."""
+    air, _ = examples.all_air_traces(6)[name]
+    prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device=card)
+    s = prover.setup
+    for k, (prog, extended) in enumerate(_stark_programs(prover)):
+        for rows, stride in (((s.n_ext, prover.blowup) if extended
+                              else (s.n, 1)), (1000, 3)):
+            secs, ch, pub, ev = _stark_inputs(s, rows, k, card)
+            out, want, flags, want_flags = _dag_both(prog, secs, ch, pub, ev,
+                                                     rows, stride, card)
+            assert torch.equal(out, want), (name, k, rows)
+            assert torch.equal(flags, want_flags), (name, k, rows)
+
+
+def test_dag_kernel_matches_plain_on_the_small_combined_air(card):
+    """The small combined AIR's (1,001 constraints) f/t, num/den and FRI
+    programs, kernel == twin on the card; its check program flags every
+    constraint on random sections, as the twin does."""
+    from zkevm_prover_tpu_torch.executor import combined
+    from zkevm_prover_tpu_torch.executor import examples as batches
+
+    _, _, batch = batches.small_rom_batch("cpu")
+    air = combined.build_batch_air(batch.rom, batch.n_bits,
+                                   include=batch.include)
+    prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device=card)
+    s = prover.setup
+    for k, (prog, extended) in enumerate(
+            [(prover._prog_ft[0], False), (prover._prog_num_den[0], False),
+             (prover._prog_fri, True), (prover._prog_check, False)]):
+        rows, stride = (s.n_ext, prover.blowup) if extended else (s.n, 1)
+        secs, ch, pub, ev = _stark_inputs(s, rows, 10 + k, card)
+        out, want, flags, want_flags = _dag_both(prog, secs, ch, pub, ev,
+                                                 rows, stride, card)
+        assert torch.equal(out, want) and torch.equal(flags, want_flags), k
+
+
+def _gp_operands(n, num_dim, den_dim, seed, device):
+    rng = np.random.default_rng(seed)
+    shape = lambda d: (n,) if d == 1 else (n, 3)
+    return (gl.from_u64(rng.integers(0, gl.P, shape(num_dim),
+                                     dtype=np.uint64), device),
+            gl.from_u64(rng.integers(1, gl.P, shape(den_dim),
+                                     dtype=np.uint64), device))
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 1024, 1025, (1 << 14) + 37])
+@pytest.mark.parametrize("num_dim,den_dim", [(1, 1), (3, 3), (1, 3), (3, 1)])
+def test_grand_product_kernel_matches_calculate_z(card, n, num_dim, den_dim):
+    from zkevm_prover_tpu_torch.ops import stark_cuda
+    from zkevm_prover_tpu_torch.stark import prover as sp
+
+    num, den = _gp_operands(n, num_dim, den_dim, n + num_dim + 3 * den_dim,
+                            card)
+    z = torch.full((n, 3), -1, dtype=torch.int64, device=card)
+    before = stark_cuda.launches["grand_product"]
+    sp.grand_products([(num, den, z)])
+    assert stark_cuda.launches["grand_product"] == before + 1
+    assert torch.equal(z, sp.calculate_z(num, den))
+
+
+@pytest.mark.parametrize("den_dim", [1, 3])
+def test_grand_product_kernel_zero_den_and_batches(card, den_dim):
+    """A zero den gives z = (1, 0, 0, ...) as calculate_z's batch
+    inversion does; several arguments in one launch, z into strided views
+    of one section, each equal to calculate_z."""
+    from zkevm_prover_tpu_torch.stark import prover as sp
+
+    n = (1 << 12) + 5
+    args = [_gp_operands(n, 3, den_dim, 70 + k, card) for k in range(4)]
+    args[2][1][n - 1] = 0
+    args[3][1][0] = 0
+    sec = torch.full((n, 15), -1, dtype=torch.int64, device=card)
+    sp.grand_products([(num, den, sec[:, 3 * k:3 * k + 3])
+                       for k, (num, den) in enumerate(args)])
+    for k, (num, den) in enumerate(args):
+        assert torch.equal(sec[:, 3 * k:3 * k + 3], sp.calculate_z(num, den))
+    for k in (2, 3):
+        assert sec[0, 3 * k:3 * k + 3].tolist() == [1, 0, 0]
+        assert not bool(sec[1:, 3 * k:3 * k + 3].any())
+    assert bool((sec[:, 12:] == -1).all())
+
+
+def test_stark_kernels_reject_what_they_do_not_take(card):
+    from zkevm_prover_tpu_torch.ops import stark_cuda
+
+    air, _ = examples.all_air_traces(6)["lookup"]
+    prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device=card)
+    s = prover.setup
+    prog = prover._prog_check
+    secs, ch, pub, ev = _stark_inputs(s, s.n, 1, card)
+    uni = prog.uniform_values(ch, pub, ev)
+    args = [secs[k] for k in prog.sections]
+    out = torch.zeros((s.n, 0), dtype=torch.int64, device=card)
+    flags = torch.zeros(prog.n_flags, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):      # a section on the CPU
+        stark_cuda.dag_eval(prog, [a.cpu() for a in args], uni, out, flags,
+                            rows=s.n, prime_stride=1)
+    with pytest.raises(ValueError):      # a section of other rows
+        stark_cuda.dag_eval(prog, [a[:-1] for a in args], uni, out, flags,
+                            rows=s.n, prime_stride=1)
+    with pytest.raises(ValueError):      # no flags for a flag program
+        stark_cuda.dag_eval(prog, args, uni, out, None, rows=s.n,
+                            prime_stride=1)
+    with pytest.raises(ValueError):      # a short uniform table
+        stark_cuda.dag_eval(prog, args, uni[:-1], out, flags, rows=s.n,
+                            prime_stride=1)
+    with pytest.raises(TypeError):       # int32 sections
+        stark_cuda.dag_eval(prog, [a.int() for a in args], uni, out, flags,
+                            rows=s.n, prime_stride=1)
+    num, den = _gp_operands(64, 3, 3, 1, card)
+    z = torch.zeros((64, 3), dtype=torch.int64, device=card)
+    with pytest.raises(ValueError):      # z of two columns
+        stark_cuda.grand_product([(num, den, z[:, :2])])
+    with pytest.raises(ValueError):      # den of other rows
+        stark_cuda.grand_product([(num, den[:-1], z)])
+    with pytest.raises(ValueError):      # num on the CPU
+        stark_cuda.grand_product([(num.cpu(), den, z)])
+    with pytest.raises(ValueError):
+        stark_cuda.grand_product([])

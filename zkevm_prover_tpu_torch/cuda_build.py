@@ -36,9 +36,11 @@ BUILD = PKG / "build"
 # constant set; hash.cu holds Keccak-f and the SHA-256 and Blake2b
 # compressions; bn254.cu the SNARK wrap's G1 MSM and fixed-base kernels
 # and the Fr NTT, bn254_g2.cu the same source's G2 kernels, built apart so
-# that the two nvcc runs overlap)
+# that the two nvcc runs overlap; stark.cu the STARK prover's row-program
+# interpreter and grand products)
 KERNELS = {"poseidon_gl": "poseidon_gl.cu", "hash": "hash.cu",
-           "bn254": "bn254.cu", "bn254_g2": "bn254_g2.cu"}
+           "bn254": "bn254.cu", "bn254_g2": "bn254_g2.cu",
+           "stark": "stark.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

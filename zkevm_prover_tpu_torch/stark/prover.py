@@ -12,9 +12,13 @@ Starks::genProof, src/starkpil/starks.cpp:9-395):
 
 Sections are int64 tensors on one device; the Fiat-Shamir transcript stays
 on the host. The transcript schedule and every field value match the JAX
-prover, so the proof JSON is byte-identical. Each phase evaluates its whole
-expression in one pass (`expr.eval_array` frees intermediates as it goes),
-where the JAX prover splits phases into chunks to bound XLA's programs.
+prover, so the proof JSON is byte-identical. Each phase's expressions (the
+lookups' f and t, the grand products' operands, the quotient, the FRI
+polynomial's two sums, and `check_constraints`' constraints) are compiled
+once per prover to a `dag.Program` and evaluated in one pass over the rows:
+by `dag_eval_kernel` (csrc/stark.cu) on the card, by its plain twin on the
+CPU. The grand products run through `grand_products`: `grand_product`'s
+kernel on the card, `calculate_z` on the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from .. import resolve_device
 from ..ops import gl3
 from ..ops import goldilocks as gl
 from ..ops import ntt as nttmod
+from . import dag
 from . import expr as ex
 from . import fri as frimod
 from . import scheme as schememod
@@ -100,6 +105,21 @@ def calculate_z(num, den):
     return torch.cat([gl3.one((1,), incl.device), incl[:-1]], dim=0)
 
 
+def grand_products(args) -> None:
+    """z of every (num, den, z) in `args`, written into z ((N, 3) views;
+    num and den (N,) or (N, 3)): one `grand_product` launch over all of them
+    for CUDA tensors (ops/stark_cuda.py), `calculate_z` for CPU ones."""
+    if not args:
+        return
+    if args[0][2].is_cuda:
+        from ..ops import stark_cuda
+
+        stark_cuda.grand_product(args)
+        return
+    for num, den, z in args:
+        z.copy_(calculate_z(num, den))
+
+
 def _geom3(base3, n):
     """[(1,0,0), base, base^2, ...] for an extension base — (n, 3), built
     by doubling."""
@@ -109,13 +129,6 @@ def _geom3(base3, n):
         out = torch.cat([out, gl3.mul(out, b)], dim=0)
         b = gl3.square(b)
     return out[:n]
-
-
-def _ext_rows(v, rows: int):
-    """An evaluated expression as (rows, 3) extension values."""
-    if ex._dim(v) == 1:
-        v = gl3.from_base(v)
-    return v.expand(rows, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +142,10 @@ class StarkProver:
     Reference analogue: the Starks object, which preloads const pols and
     their Merkle tree at startup (src/starkpil/starks.hpp:75-140).
     `phase_times` holds the seconds of each phase of the last prove, by the
-    JAX prover's `_t` labels."""
+    JAX prover's `_t` labels; on a card, `phase_peak_gib` the peak device
+    allocation (`max_memory_allocated`, since the caller's last reset) at
+    the end of each phase, so the first phase that reaches the prove's peak
+    is the one that set it."""
 
     def __init__(self, setup: StarkSetup, device=None):
         self.device = resolve_device(device)
@@ -155,6 +171,7 @@ class StarkProver:
         self._zi_2ns = gl.from_u64(np.tile(np.array(zi_vals, np.uint64), s.n),
                                    self.device)
         self.phase_times: dict[str, float] = {}
+        self.phase_peak_gib: dict[str, float] = {}
         self._t_last = None
 
     # -- preprocessed commitment (lazy) --------------------------------------
@@ -193,25 +210,94 @@ class StarkProver:
             return arr[:, info.pos]
         return arr[:, info.pos:info.pos + 3]
 
-    def _bindings(self, sections, consts, challenges, publics, *, ext: bool,
-                  x=None, zi=None, evals=None, cm=None):
-        return ex.ArrayBindings(
-            cm=cm or (lambda cid: self._col(sections, cid)),
-            const=lambda cid: consts[:, cid],
-            device=self.device,
-            challenges=challenges,
-            publics=publics,
-            x=x,
-            zi=zi,
-            evals=evals,
-            prime_stride=self.blowup if ext else 1,
-        )
+    def _leaf(self, n):
+        """A row leaf's (section key, column, dim) for `dag`."""
+        if isinstance(n, ex.Cm):
+            info = self.setup.cols[n.id]
+            return info.stage, info.pos, info.dim
+        if isinstance(n, ex.Const):
+            return "const", n.id, 1
+        return ("x" if isinstance(n, ex.X) else "zi"), 0, 1
+
+    def _compile(self, outputs) -> dag.Program:
+        return dag.compile_program(outputs, self._leaf)
+
+    def _run(self, prog, sections, rows, out, *, challenges=None,
+             publics=None, evals=None, ext=False, flags=None):
+        dag.run(prog, sections,
+                prog.uniform_values(challenges, publics, evals), out, flags,
+                rows=rows, prime_stride=self.blowup if ext else 1)
+
+    def _x_n(self):
+        s = self.setup
+        return nttmod.geometric_powers(gl.w(s.n_bits), s.n, self.device)
+
+    @functools.cached_property
+    def _prog_ft(self):
+        """Phase 2: each lookup's f and t, side by side, plan.dim columns
+        each."""
+        outs, col = [], 0
+        for plan in self.setup.lookups:
+            for e in (plan.f_exp, plan.t_exp):
+                outs.append(dag.Output(e, col=col, ext=plan.dim == 3))
+                col += plan.dim
+        return self._compile(outs), col
+
+    @functools.cached_property
+    def _prog_aux(self):
+        """Phase 3's partial-product columns, written into the stage-3
+        section at their own positions."""
+        s = self.setup
+        outs = [dag.Output(e, col=s.cols[cid].pos, ext=True)
+                for plan in s.lookups + s.permutations + s.connections
+                for cid, e in getattr(plan, "aux", [])]
+        return self._compile(outs) if outs else None
+
+    @functools.cached_property
+    def _prog_num_den(self):
+        """Phase 3's grand-product operands: each plan's num and den side by
+        side, each in its own dim; returns (program, width, [(num col, num
+        dim, den col, den dim)])."""
+        s = self.setup
+        outs, layout, col = [], [], 0
+        for plan in s.lookups + s.permutations + s.connections:
+            at = []
+            for e in (plan.num, plan.den):
+                d = dag.expr_dim(e, self._leaf)
+                outs.append(dag.Output(e, col=col))
+                at += [col, d]
+                col += d
+            layout.append(tuple(at))
+        return self._compile(outs), col, layout
+
+    @functools.cached_property
+    def _prog_q(self):
+        """Phase 4: C·Zi on the extended coset, as (NExt, 3)."""
+        return self._compile([dag.Output(self.setup.c_combined * ex.Zi(),
+                                         col=0, ext=True)])
+
+    @functools.cached_property
+    def _prog_fri(self):
+        """Phase 5: the FRI polynomial's two evMap Horner sums at columns 0
+        and 3 (a missing sum stays zero)."""
+        return self._compile([dag.Output(e, col=3 * i, ext=True)
+                              for i, e in enumerate(self._fri_exprs)
+                              if e is not None])
+
+    @functools.cached_property
+    def _prog_check(self):
+        """Every constraint, each raising its own flag where not zero."""
+        return self._compile([dag.Output(c, flag=i) for i, c in
+                              enumerate(self.setup.constraints)])
 
     def _t(self, label: str):
         """Record the seconds since the previous mark under `label` (the
-        reference's TimerStopAndLog(STARK_STEP_*)); waits for the device."""
+        reference's TimerStopAndLog(STARK_STEP_*)); waits for the device,
+        and on a card also records its peak allocation so far."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            self.phase_peak_gib[label] = torch.cuda.max_memory_allocated(
+                self.device) / 2**30
         now = time.perf_counter()
         if self._t_last is not None:
             self.phase_times[label] = now - self._t_last
@@ -220,16 +306,20 @@ class StarkProver:
     # -- phases --------------------------------------------------------------
 
     def _phase2(self, cm1_n, challenges, publics):
-        """h1/h2 of every lookup; returns (cm2, one ok flag per lookup)."""
+        """h1/h2 of every lookup; returns (cm2, one ok flag per lookup).
+        `challenges` (8, 3) and `publics` are host values."""
         s = self.setup
-        b = self._bindings({1: cm1_n}, self.const_n, challenges, publics,
-                           ext=False)
-        cols, oks = [], []
+        if not s.lookups:
+            return self._zeros(s.n, 0), []
+        prog, width = self._prog_ft
+        ft = self._zeros(s.n, width)
+        self._run(prog, {1: cm1_n, "const": self.const_n}, s.n, ft,
+                  challenges=challenges, publics=publics)
+        cols, oks, col = [], [], 0
         for plan in s.lookups:
-            fv = ex.eval_array(plan.f_exp, b)
-            tv = ex.eval_array(plan.t_exp, b)
-            fv = fv[:, None] if fv.ndim == 1 else fv
-            tv = tv[:, None] if tv.ndim == 1 else tv
+            d = plan.dim
+            fv, tv = ft[:, col:col + d], ft[:, col + d:col + 2 * d]
+            col += 2 * d
             h1, h2, ok = calculate_h1h2(fv, tv)
             cols += [h1, h2]
             oks.append(ok)
@@ -237,34 +327,30 @@ class StarkProver:
         return cm2, oks
 
     def _phase3(self, cm1_n, cm2_n, challenges, publics):
+        """The stage-3 section: the partial products (one program), every
+        plan's num and den (one program), then every z (one grand-product
+        launch). `challenges` (8, 3) and `publics` are host values."""
         s = self.setup
         plans = s.lookups + s.permutations + s.connections
+        cm3 = self._zeros(s.n, s.section_width[3])
         if not plans:
-            return self._zeros(s.n, 0)
-        sections = {1: cm1_n, 2: cm2_n}
-        aux_vals: dict = {}
-
-        def cm_bind(cid):
-            if cid in aux_vals:
-                return aux_vals[cid]
-            return self._col(sections, cid)
-
-        b = self._bindings(
-            sections, self.const_n, challenges, publics, ext=False,
-            x=nttmod.geometric_powers(gl.w(s.n_bits), s.n, self.device),
-            cm=cm_bind)
-        cols = []
-        for plan in plans:
-            # wide-connection partial products precede their z
-            for cid, e in getattr(plan, "aux", []):
-                v = ex.eval_array(e, b)
-                v = v if v.ndim == 2 else gl3.from_base(v)
-                aux_vals[cid] = v
-                cols.append(v)
-            num = ex.eval_array(plan.num, b)
-            den = ex.eval_array(plan.den, b)
-            cols.append(calculate_z(num, den))
-        return torch.cat(cols, dim=1)
+            return cm3
+        sections = {1: cm1_n, 2: cm2_n, 3: cm3, "const": self.const_n,
+                    "x": self._x_n()}
+        kw = dict(challenges=challenges, publics=publics)
+        if self._prog_aux is not None:
+            self._run(self._prog_aux, sections, s.n, cm3, **kw)
+        prog, width, layout = self._prog_num_den
+        nd = self._zeros(s.n, width)
+        self._run(prog, sections, s.n, nd, **kw)
+        args = []
+        for plan, (nc, ndim, dc, ddim) in zip(plans, layout):
+            pos = s.cols[plan.z_id].pos
+            args.append((nd[:, nc] if ndim == 1 else nd[:, nc:nc + 3],
+                         nd[:, dc] if ddim == 1 else nd[:, dc:dc + 3],
+                         cm3[:, pos:pos + 3]))
+        grand_products(args)
+        return cm3
 
     def _phase4(self, sections_2ns, challenges, publics):
         """Quotient: C = Horner(constraints, challenge 4) on the coset, times
@@ -272,10 +358,9 @@ class StarkProver:
         coset (reference: INTT -> per-chunk shift^{-pN} scale -> NTT,
         starks.cpp:262-287)."""
         s = self.setup
-        b = self._bindings(sections_2ns, self.const_2ns, challenges, publics,
-                           ext=True, x=self._x_2ns, zi=self._zi_2ns)
-        c_val = _ext_rows(ex.eval_array(s.c_combined, b), s.n_ext)
-        q = gl3.mul(c_val, gl3.from_base(self._zi_2ns))
+        q = self._zeros(s.n_ext, 3)
+        self._run(self._prog_q, self._sections_2ns(sections_2ns), s.n_ext, q,
+                  challenges=challenges, publics=publics, ext=True)
         coefs = nttmod.intt(q, s.n_bits_ext)  # \hat c_j = c_j shift^j
         del q
         shift_in = pow(gl.shift_inv(), s.n, gl.P)
@@ -325,17 +410,23 @@ class StarkProver:
                 e1 = term if e1 is None else e1 * V1 + term
         return e1, e2
 
+    def _sections_2ns(self, sections_2ns) -> dict:
+        return {**sections_2ns, "const": self.const_2ns, "x": self._x_2ns,
+                "zi": self._zi_2ns}
+
     def _phase5_fri(self, sections_2ns, challenges, publics, evals):
+        """`challenges` (8, 3), `publics` and `evals` (nEv, 3) are host
+        values."""
         s = self.setup
-        bnd = self._bindings(sections_2ns, self.const_2ns, challenges, publics,
-                             ext=True, x=self._x_2ns, zi=self._zi_2ns,
-                             evals=evals)
-        accs = [self._zeros(s.n_ext, 3) if e is None
-                else _ext_rows(ex.eval_array(e, bnd), s.n_ext)
-                for e in self._fri_exprs]
+        e12 = self._zeros(s.n_ext, 6)
+        if self._prog_fri.n_ops:
+            self._run(self._prog_fri, self._sections_2ns(sections_2ns),
+                      s.n_ext, e12, challenges=challenges, publics=publics,
+                      evals=evals, ext=True)
+        accs = [e12[:, :3], e12[:, 3:]]
         self._t("ph5_fri_chunk0")
         x = self._x_2ns
-        xi3 = challenges[7]
+        xi3 = gl.from_u64(challenges[7], self.device)
         wxi3 = gl3.mul_base(xi3, gl.w(s.n_bits))
         xs = gl3.sub(gl3.from_base(x), xi3)
         xws = gl3.sub(gl3.from_base(x), wxi3)
@@ -355,15 +446,17 @@ class StarkProver:
         return frimod.fold_layer(vals, from_bits - to_bits, special_x,
                                  shift_inv, w_inv)
 
-    def _stages_1_2(self, cm1_n, publics, publics_dev,
+    def _stages_1_2(self, cm1_n, publics, publics_dev=None,
                     mark=lambda label: None):
         """Phases 1 and 2 under the Fiat-Shamir transcript, shared by prove()
         and check_constraints(quick=False) so that both draw the same
         challenges: seed the transcript with the verkey and publics, extend
         and commit stage 1, draw challenges 0-1, h1/h2, extend and commit
         stage 2, draw challenges 2-3. `mark(label)` is called after each
-        step (prove's phase timer). Returns (transcript, challenges (8, 3)
-        uint64, cm1_2ns, tree1, cm2_n, lookup ok flags, cm2_2ns, tree2)."""
+        step (prove's phase timer). `publics_dev` is not read (the phases
+        take the host publics); callers may still pass it. Returns
+        (transcript, challenges (8, 3) uint64, cm1_2ns, tree1, cm2_n, lookup
+        ok flags, cm2_2ns, tree2)."""
         s = self.setup
         transcript = self.scheme.Transcript()
         transcript.put(self.scheme.root_ints(self.verkey))
@@ -382,8 +475,7 @@ class StarkProver:
         # ---- phase 2
         challenges[0] = transcript.get_field3()
         challenges[1] = transcript.get_field3()
-        cm2_n, oks = self._phase2(cm1_n, gl.from_u64(challenges, self.device),
-                                  publics_dev)
+        cm2_n, oks = self._phase2(cm1_n, challenges, publics)
         mark("ph2_h1h2")
         cm2_2ns = (self._extend(cm2_n) if s.section_width[2]
                    else self._zeros(s.n_ext, 0))
@@ -400,7 +492,8 @@ class StarkProver:
     def check_constraints(self, cm1_values, publics=None,
                           quick: bool = False) -> list:
         """Diagnostic: run phases 1-3 and evaluate every constraint on the
-        trace domain; returns the indices of violated constraints, then
+        trace domain (one program raising one flag per constraint); returns
+        the indices of violated constraints, then
         `"plookup:i"` for each lookup i whose f values are not all in t
         (empty = ok). The role of the reference's zkassert in calculateZ
         (polinomial.hpp:606).
@@ -418,25 +511,25 @@ class StarkProver:
             publics = [
                 int(cm1_values[row, cid]) for (_, cid, row) in s.air.publics
             ]
-        publics_dev = gl.from_u64(np.array(publics, dtype=np.uint64), dev)
         cm1_n = gl.from_u64(cm1_values, dev)
         if quick:
             rng = np.random.default_rng(0xC0FFEE)
             challenges = rng.integers(1, 1 << 63, size=(8, 3)).astype(
                 np.uint64)
-            ch = gl.from_u64(challenges, dev)
-            cm2_n, oks = self._phase2(cm1_n, ch, publics_dev)
+            cm2_n, oks = self._phase2(cm1_n, challenges, publics)
         else:
-            stages = self._stages_1_2(cm1_n, publics, publics_dev)
+            stages = self._stages_1_2(cm1_n, publics)
             challenges, cm2_n, oks = stages[1], stages[4], stages[5]
-            ch = gl.from_u64(challenges, dev)
-        cm3_n = self._phase3(cm1_n, cm2_n, ch, publics_dev)
-        b = self._bindings(
-            {1: cm1_n, 2: cm2_n, 3: cm3_n}, self.const_n, ch, publics_dev,
-            ext=False,
-            x=nttmod.geometric_powers(gl.w(s.n_bits), s.n, dev))
-        bad: list = [i for i, c in enumerate(s.constraints)
-                     if bool((ex.eval_array(c, b) != 0).any())]
+        cm3_n = self._phase3(cm1_n, cm2_n, challenges, publics)
+        flags = torch.zeros(len(s.constraints), dtype=torch.int32,
+                            device=dev)
+        if s.constraints:
+            self._run(self._prog_check,
+                      {1: cm1_n, 2: cm2_n, 3: cm3_n, "const": self.const_n,
+                       "x": self._x_n()},
+                      s.n, self._zeros(s.n, 0), challenges=challenges,
+                      publics=publics, flags=flags)
+        bad: list = torch.nonzero(flags).flatten().tolist()
         bad += [f"plookup:{i}" for i, ok in enumerate(oks) if not ok]
         return bad
 
@@ -453,20 +546,19 @@ class StarkProver:
             publics = [
                 int(cm1_values[row, cid]) for (_, cid, row) in s.air.publics
             ]
-        publics_dev = gl.from_u64(np.array(publics, dtype=np.uint64), dev)
         self.phase_times = {}
+        self.phase_peak_gib = {}
         self._t_last = None
         self._t("start")
         cm1_n = gl.from_u64(cm1_values, dev)
 
         (transcript, challenges, cm1_2ns, tree1, cm2_n, oks, cm2_2ns,
-         tree2) = self._stages_1_2(cm1_n, publics, publics_dev, self._t)
+         tree2) = self._stages_1_2(cm1_n, publics, mark=self._t)
         if not all(oks):
             raise ValueError("plookup violation: f value not present in t")
 
         # ---- phase 3
-        ch = gl.from_u64(challenges, dev)
-        cm3_n = self._phase3(cm1_n, cm2_n, ch, publics_dev)
+        cm3_n = self._phase3(cm1_n, cm2_n, challenges, publics)
         self._t("ph3_z")
         del cm2_n, cm1_n   # trace-domain copies are dead once cm3 exists
         cm3_2ns = (self._extend(cm3_n) if s.section_width[3]
@@ -478,9 +570,8 @@ class StarkProver:
 
         # ---- phase 4
         challenges[4] = transcript.get_field3()
-        ch = gl.from_u64(challenges, dev)
         sections_2ns = {1: cm1_2ns, 2: cm2_2ns, 3: cm3_2ns}
-        cm4_2ns = self._phase4(sections_2ns, ch, publics_dev)
+        cm4_2ns = self._phase4(sections_2ns, challenges, publics)
         self._t("ph4_quotient")
         tree4 = self.scheme.commit(cm4_2ns)
         transcript.put(self.scheme.root_ints(tree4.root()))
@@ -497,8 +588,8 @@ class StarkProver:
             transcript.put([int(v) for v in e])
         challenges[5] = transcript.get_field3()
         challenges[6] = transcript.get_field3()
-        ch = gl.from_u64(challenges, dev)
-        fri_pol = self._phase5_fri(sections_2ns, ch, publics_dev, evals_dev)
+        fri_pol = self._phase5_fri(sections_2ns, challenges, publics,
+                                   evals_np)
 
         # ---- FRI fold/commit
         # The reference squeezes special_x at the top of EVERY step iteration

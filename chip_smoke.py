@@ -338,19 +338,28 @@ def _products(da: int, db: int) -> int:
     return {(1, 1): 1, (1, 3): 3, (3, 1): 3, (3, 3): 6}[(da, db)]
 
 
+# dag_eval_kernel's times in phase 3e before its Hopper redesign (the
+# interpreter with per-thread slots in local memory and strided section
+# loads, NVIDIA H100 80GB HBM3 at 700 W), logged beside this run's
+DAG_MS_BEFORE = {"quotient": 529.70, "fri": 66.90, "f_t": 4.58,
+                 "num_den": 8.41, "num_den_ragged": 8.44}
+
+
 def dag_bound(prog, rows: int) -> tuple[float, str]:
     """(least ms, what bounds it) for `prog` (a stark.dag.Program) over
-    `rows` rows."""
+    `rows` rows: the products of its MUL and fused instructions; every
+    (section, column)
+    among its leaf words read once, whether on the row or the next one."""
     from zkevm_prover_tpu_torch.stark import dag
 
-    products, cols, out_cols = 0, set(), 0
-    for op, _, a, b in prog.code.tolist():
-        if op & ~3 == dag.MUL:
-            products += _products(3 if op & 2 else 1, 3 if op & 1 else 1)
-        elif op <= dag.LOAD3_NEXT:
-            cols.update((a, b + k) for k in range(3 if op & 1 else 1))
+    products, out_cols = 0, 0
+    for op in prog.code[:, 0].tolist():
+        dims = dag.product_dims(op)
+        if dims is not None:
+            products += _products(*dims)
         elif op in (dag.STORE1, dag.STORE3, dag.STORE13):
             out_cols += 1 if op == dag.STORE1 else 3
+    cols = {(s, c) for s, c, _ in prog.leaves.tolist()}
     ops_s = rows * products * FIELD_PRODUCT_IMAD / IMAD_PER_S
     bytes_s = rows * (len(cols) + out_cols) * 8 / HBM_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
@@ -2147,6 +2156,7 @@ def check_stark(torch, prover) -> dict:
     library time is none. Returns the kernels-line entries (without
     `launches`)."""
     from zkevm_prover_tpu_torch.ops import goldilocks as gl
+    from zkevm_prover_tpu_torch.ops import stark_cuda as scu
     from zkevm_prover_tpu_torch.stark import dag
     from zkevm_prover_tpu_torch.stark import expr as ex
     from zkevm_prover_tpu_torch.stark import prover as sp
@@ -2202,11 +2212,22 @@ def check_stark(torch, prover) -> dict:
             note = f"; == eval_array ({eval_ms:.1f} ms)"
         if name == "num_den":
             nd = out
+        plan = scu.dag_plan(prog, rows)
+        tiles = -(-rows // scu.DAG_ROWS)
         _log(f"dag_eval {name} ({prog.n_ops} instructions, {prog.n_slots} "
-             f"slots, chunk {prog.chunk}) at {rows} rows: kernel "
-             f"{times[name]:.3f} ms ({100 * bounds[name][0] / times[name]:.2f}"
-             f" % of bound), == run_plain ({plain[name]:.1f} ms){note}; "
-             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+             f"slots, chunk {prog.chunk}, {len(prog.leaves)} leaf words, "
+             f"{prog.leaf_reads} leaf reads a row, "
+             f"{len(prog.uniform_roots)} uniform entries) at {rows} rows: "
+             f"kernel {times[name]:.3f} ms "
+             f"({100 * bounds[name][0] / times[name]:.2f} % of bound; before "
+             f"the redesign {DAG_MS_BEFORE[name]} ms, "
+             f"{100 * bounds[name][0] / DAG_MS_BEFORE[name]:.2f} %), == "
+             f"run_plain ({plain[name]:.1f} ms){note}; bound "
+             f"{bounds[name][0]:.4f} ms ({bounds[name][1]}); shared memory "
+             f"{plan['smem']} B a block, grid {plan['grid']} blocks of "
+             f"{scu.DAG_ROWS} rows over {tiles} tiles (up to "
+             f"{-(-tiles // plan['grid'])} a block), leaf scratch "
+             f"{plan['scratch']} B")
         del secs, out, want
         torch.cuda.empty_cache()
 

@@ -1037,3 +1037,167 @@ def test_stark_kernels_reject_what_they_do_not_take(card):
         stark_cuda.grand_product([(num.cpu(), den, z)])
     with pytest.raises(ValueError):
         stark_cuda.grand_product([])
+
+
+# dag_eval_kernel's forms: slot files of 2, 9 and 32 slots, ragged rows
+# with next-row reads wrapping past the last rows, sections given as
+# strided views, flags, the FRI program's 1,834 uniform entries, more tiles
+# than the persistent grid has blocks, and a block past the card's shared
+# memory (the wrapper raises).
+
+
+def _slot_outputs(setup, k: int):
+    """Two Horner chains over k shared products of committed columns, the
+    second in reverse order, so that all k stay live between them."""
+    from zkevm_prover_tpu_torch.stark import dag
+    from zkevm_prover_tpu_torch.stark import expr as ex
+
+    w = setup.section_width[1]
+    cm = [ex.Cm(i) for i in range(w)]
+    shared = [cm[j % w] * cm[(j + 1) % w] + j for j in range(k)]
+    up, down = shared[0], shared[-1]
+    for t in shared[1:]:
+        up = up * ex.Challenge(4) + t
+    for t in shared[-2::-1]:
+        down = down * ex.Challenge(3) + t
+    return [dag.Output(up, col=0, ext=True), dag.Output(down, col=3, ext=True)]
+
+
+def _slot_program(prover, slots: int):
+    """A program of exactly `slots` slots, uncut: the first chain alone or
+    both."""
+    from zkevm_prover_tpu_torch.stark import dag
+
+    for k in range(1, 40):
+        outs = _slot_outputs(prover.setup, k)
+        for o in (outs[:1], outs):
+            prog = dag.compile_program(o, prover._leaf, max_slots=slots)
+            if prog.n_slots == slots and prog.chunk is None:
+                return prog
+    raise AssertionError(f"no program of {slots} slots")
+
+
+@pytest.mark.parametrize("slots", [2, 9, 32])
+def test_dag_kernel_slot_counts(card, slots):
+    air, _ = examples.all_air_traces(6)["permutation"]
+    prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device=card)
+    prog = _slot_program(prover, slots)
+    for rows, stride in ((1 << 12, 1), ((1 << 12) + 37, 5)):
+        secs, ch, pub, ev = _stark_inputs(prover.setup, rows, slots, card)
+        out, want, _, _ = _dag_both(prog, secs, ch, pub, ev, rows, stride,
+                                    card)
+        assert torch.equal(out, want), (slots, rows)
+
+
+def _small_combined(card):
+    from zkevm_prover_tpu_torch.executor import combined
+    from zkevm_prover_tpu_torch.executor import examples as batches
+
+    _, _, batch = batches.small_rom_batch("cpu")
+    air = combined.build_batch_air(batch.rom, batch.n_bits,
+                                   include=batch.include)
+    return StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                       device=card)
+
+
+def test_dag_kernel_ragged_strided_views_and_wrap(card):
+    """The small combined AIR's C * Zi at 2^12 + 37 rows with next-row
+    reads at a stride of 8 (the last 8 rows wrap to the first), over
+    sections that are column slices of wider tensors (row stride above
+    the width): kernel == twin, and == the kernel on contiguous copies.
+    Also the FRI program, whose uniform table has 1,834 entries."""
+    prover = _small_combined(card)
+    s = prover.setup
+    rows = (1 << 12) + 37
+    secs, ch, pub, ev = _stark_inputs(s, rows, 41, card)
+    views = {}
+    for k, v in secs.items():
+        wide = torch.full((rows, (v.shape[1] if v.ndim == 2 else 1) + 7), -1,
+                          dtype=torch.int64, device=card)
+        if v.ndim == 2:
+            wide[:, 3:3 + v.shape[1]] = v
+            views[k] = wide[:, 3:3 + v.shape[1]]
+        else:
+            wide[:, 3] = v
+            views[k] = wide[:, 3]
+        assert views[k].stride(0) > (v.shape[1] if v.ndim == 2 else 1)
+    prog = prover._prog_q
+    out, want, _, _ = _dag_both(prog, views, ch, pub, ev, rows, 8, card)
+    plain, _, _, _ = _dag_both(prog, secs, ch, pub, ev, rows, 8, card)
+    assert torch.equal(out, want) and torch.equal(out, plain)
+    fri = prover._prog_fri
+    assert len(fri.uniform_roots) == 1834
+    out, want, _, _ = _dag_both(fri, views, ch, pub, ev, rows, 8, card)
+    assert torch.equal(out, want)
+
+
+def test_dag_kernel_flags_at_the_last_row(card):
+    """A flag program: a flag that is zero everywhere stays down, one that
+    is not zero on the last row only (a ragged tile's last live thread) is
+    raised, and so is one not zero on every row."""
+    from zkevm_prover_tpu_torch.stark import dag
+    from zkevm_prover_tpu_torch.stark import expr as ex
+
+    air, _ = examples.all_air_traces(6)["lookup"]
+    prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device=card)
+    s = prover.setup
+    rows = (1 << 10) + 37
+    secs, ch, pub, ev = _stark_inputs(s, rows, 7, card)
+    secs[1][:, 0] = 0
+    secs[1][-1, 0] = 5
+    a, b = ex.Cm(0), ex.Cm(1)
+    prog = dag.compile_program(
+        [dag.Output(b - b, flag=0), dag.Output(a * ex.Challenge(1), flag=1),
+         dag.Output(b * b + 1, flag=2), dag.Output(a - a, flag=3)],
+        prover._leaf)
+    out, want, flags, want_flags = _dag_both(prog, secs, ch, pub, ev, rows,
+                                             1, card)
+    assert torch.equal(flags, want_flags)
+    assert flags.tolist() == [0, 1, 1, 0]
+    secs[1][-1, 0] = 0
+    _, _, flags, _ = _dag_both(prog, secs, ch, pub, ev, rows, 1, card)
+    assert flags.tolist() == [0, 0, 1, 0]
+
+
+def test_dag_kernel_more_tiles_than_blocks(card):
+    """Rows for twice the persistent grid's tiles and 37 more: each block
+    takes several tiles through its one scratch region."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda
+
+    air, _ = examples.all_air_traces(6)["permutation"]
+    prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device=card)
+    prog = prover._prog_num_den[0]
+    grid = stark_cuda.dag_plan(prog, 1 << 30)["grid"]
+    rows = 2 * grid * stark_cuda.DAG_ROWS + 37
+    assert stark_cuda.dag_plan(prog, rows)["grid"] == grid
+    secs, ch, pub, ev = _stark_inputs(prover.setup, rows, 9, card)
+    out, want, _, _ = _dag_both(prog, secs, ch, pub, ev, rows, 1, card)
+    assert torch.equal(out, want)
+
+
+def test_dag_kernel_32_slots_and_a_wide_uniform_table(card):
+    """32 slots beside 1,400 uniform entries: the slot file takes a
+    block's largest shared memory and the table, read from device memory,
+    has no size limit; the kernel equals the twin bit for bit."""
+    from zkevm_prover_tpu_torch.ops import stark_cuda
+    from zkevm_prover_tpu_torch.stark import dag
+    from zkevm_prover_tpu_torch.stark import expr as ex
+
+    air, _ = examples.all_air_traces(6)["permutation"]
+    prover = StarkProver(StarkSetup(air, n_queries=8, fri_fold_bits=2),
+                         device=card)
+    s = prover.setup
+    wide = ex.Cm(0) * ex.Number(2)
+    for j in range(3, 1403):
+        wide = wide + ex.Cm(0) * ex.Number(j)
+    outs = _slot_outputs(s, 30) + [dag.Output(wide, col=6, ext=True)]
+    prog = dag.compile_program(outs, prover._leaf)
+    assert prog.n_slots == 32 and len(prog.uniform_roots) > 1400
+    assert stark_cuda.dag_plan(prog, s.n)["smem"] == 8 * (96 + 2) * 256
+    rows = s.n + 37
+    secs, ch, pub, ev = _stark_inputs(s, rows, 2, card)
+    out, want, _, _ = _dag_both(prog, secs, ch, pub, ev, rows, 1, card)
+    assert torch.equal(out, want)

@@ -15,6 +15,8 @@ card (tests/test_torch_cuda.py, chip_smoke.py phase 3e)."""
 
 import functools
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -202,9 +204,131 @@ def test_forced_slot_cap_chunks_and_matches():
     capped = dag.compile_program(outs, prover._leaf, max_slots=6)
     assert capped.chunk is not None and capped.n_slots <= 6
     assert capped.n_ops > free.n_ops      # shared products recomputed
-    with pytest.raises(ValueError):
-        dag.compile_program(outs, prover._leaf, max_slots=2)
+    with pytest.raises(ValueError, match="at chunk 1") as err:
+        dag.compile_program(outs, prover._leaf, max_slots=1)
+    finest = int(re.search(r"needs (\d+) slots", str(err.value)).group(1))
+    assert dag.compile_program(outs, prover._leaf,
+                               max_slots=finest).n_slots <= finest
+    with pytest.raises(ValueError):       # just below the finest cut's
+        dag.compile_program(outs, prover._leaf, max_slots=finest - 1)
     inp = Inputs(s, s.n, 3)
     np.testing.assert_array_equal(run_twin(capped, inp, 6, 1),
                                   run_twin(free, inp, 6, 1))
     assert_program_matches_jax(capped, inp, 1)
+
+
+def _decode(words: np.ndarray) -> np.ndarray:
+    """Program.words back to (op, dst, a, b, c), the kernel's decoding."""
+    w = words.astype(np.uint64)
+
+    def field(shift, bits, signed):
+        x = ((w >> np.uint64(shift)) & np.uint64((1 << bits) - 1)).astype(
+            np.int64)
+        return np.where(signed & (x >= 1 << (bits - 1)), x - (1 << bits), x)
+
+    return np.stack([field(0, 6, False), field(6, 6, False),
+                     field(12, 17, True), field(29, 17, True),
+                     field(46, 17, True)], axis=1)
+
+
+def test_leaf_table_and_instruction_words():
+    """The small combined AIR's C * Zi: no load instructions; each leaf
+    word listed once, sorted by (section, next row, column); a GL3 leaf
+    operand names three side-by-side words of one column triple; every
+    operand names a slot below n_slots, a word of the table or an entry of
+    the uniform table; the last slot forwards: each value written there is
+    read by the next instruction, and only there; most products are fused
+    with the sum that reads them; the 64-bit words decode to the code."""
+    prog = _combined()._prog_q
+    binary = {k + e for k in (dag.ADD, dag.SUB, dag.MUL) for e in range(4)}
+    fused = {k + e for k in (dag.MADD, dag.MSUB, dag.SUBM) for e in range(8)}
+    unary = {dag.NEG1, dag.NEG3}
+    sinks = {dag.STORE1, dag.STORE3, dag.STORE13, dag.FLAG1, dag.FLAG3}
+    code = prog.code.tolist()
+    assert {c[0] for c in code} <= binary | fused | unary | sinks
+    assert sum(c[0] in fused for c in code) > len(code) // 3
+    leaves = [tuple(r) for r in prog.leaves.tolist()]
+    assert len(set(leaves)) == len(leaves)
+    assert leaves == sorted(leaves, key=lambda r: (r[0], r[2], r[1]))
+    n_uni, n_words = len(prog.uniform_roots), len(leaves)
+    gl3_uses = 0
+    fwd = prog.n_slots - 1
+    writes = [i for i, c in enumerate(code) if c[0] not in sinks
+              and c[1] == fwd]
+    reads = [i for i, c in enumerate(code)
+             if fwd in [x for x, _ in dag.operands(*c)]]
+    assert writes and [i + 1 for i in writes] == reads
+    for i, (op, dst, a, b, c) in enumerate(code):
+        if op not in sinks:
+            assert 0 <= dst < prog.n_slots
+        for x, ext in dag.operands(op, dst, a, b, c):
+            if x >= dag.MAX_SLOTS:
+                w = x - dag.MAX_SLOTS
+                assert w + (3 if ext else 1) <= n_words
+                if ext:
+                    gl3_uses += 1
+                    (s0, c0, n0), (s1, c1, n1), (s2, c2, n2) = \
+                        leaves[w:w + 3]
+                    assert s0 == s1 == s2 and n0 == n1 == n2
+                    assert (c1, c2) == (c0 + 1, c0 + 2)
+            elif x >= 0:
+                assert x < prog.n_slots
+            else:
+                assert -1 - x < n_uni
+    assert gl3_uses and prog.leaf_reads > n_words
+    np.testing.assert_array_equal(_decode(prog.words),
+                                  prog.code.astype(np.int64))
+
+
+def test_leaf_operands_match_jax():
+    """Leaves as direct operands: bare base and GL3 leaves stored, on the
+    row and on the next one (wrapping past the last rows at a stride of
+    3 on a ragged row count), negated, in products with uniform values and
+    each other, and a row-invariant output; run_plain == eval_array."""
+    air, _ = toy.all_air_traces(5)["permutation"]
+    s = StarkSetup(air, n_queries=8, fri_fold_bits=2)
+    prover = StarkProver(s, device="cpu")
+    base = [c for c in range(len(s.cols)) if s.cols[c].dim == 1]
+    ext3 = [c for c in range(len(s.cols)) if s.cols[c].dim == 3]
+    a, b, z = ex.Cm(base[0]), ex.Cm(base[1], prime=True), \
+        ex.Cm(ext3[0], prime=True)
+    outs = [dag.Output(a, col=0), dag.Output(b, col=1),
+            dag.Output(z, col=2), dag.Output(-b, col=5, ext=True),
+            dag.Output(a * b - z * ex.Challenge(2), col=8),
+            dag.Output(z * z + ex.Const(0, prime=True), col=11),
+            dag.Output(ex.Challenge(1) + 7, col=14)]
+    prog = dag.compile_program(outs, prover._leaf)
+    assert prog.n_slots <= 2 and len(prog.leaves) == 2 + 3 + 1
+    assert_program_matches_jax(prog, Inputs(s, 1000, 4), 3)
+
+
+def test_program_of_32_slots_matches_jax():
+    """A program whose 30 shared products stay live across two Horner
+    chains needs MAX_SLOTS = 32 slots (the products, the chain and the
+    forwarding slot), uncut; under a cap of 31 the compiler cuts it; both
+    equal eval_array."""
+    air, _ = toy.all_air_traces(5)["permutation"]
+    s = StarkSetup(air, n_queries=8, fri_fold_bits=2)
+    prover = StarkProver(s, device="cpu")
+    outs = slot_outputs(s, 30)
+    full = dag.compile_program(outs, prover._leaf)
+    assert full.n_slots == dag.MAX_SLOTS and full.chunk is None
+    cut = dag.compile_program(outs, prover._leaf, max_slots=31)
+    assert cut.chunk is not None and cut.n_slots <= 31
+    inp = Inputs(s, s.n, 5)
+    assert_program_matches_jax(full, inp, 1)
+    assert_program_matches_jax(cut, inp, 1)
+
+
+def slot_outputs(setup, k: int):
+    """Two Horner chains over k shared products of committed columns, the
+    second in reverse order, so that all k stay live between them."""
+    w = setup.section_width[1]
+    cm = [ex.Cm(i) for i in range(w)]
+    shared = [cm[j % w] * cm[(j + 1) % w] + j for j in range(k)]
+    up, down = shared[0], shared[-1]
+    for t in shared[1:]:
+        up = up * ex.Challenge(4) + t
+    for t in shared[-2::-1]:
+        down = down * ex.Challenge(3) + t
+    return [dag.Output(up, col=0, ext=True), dag.Output(down, col=3, ext=True)]

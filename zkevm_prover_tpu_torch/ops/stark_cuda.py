@@ -28,10 +28,13 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _FUNCTIONS = {
-    "stark_dag_eval": [_P, _I, _P, _P, _P, _I, _P, _LL, _P, _LL, _LL, _P],
+    "stark_dag_plan": [_I, _LL, _P, _P, _P],
+    "stark_dag_eval": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _LL, _P, _LL, _LL,
+                       _P],
     "stark_grand_product": [_P, _I, _LL, _P, _P, _P],
 }
 GP_ROWS = 1024   # rows of one grand-product block (csrc/stark.cu GP_ROWS)
+DAG_ROWS = 256   # rows of one dag_eval_kernel tile (csrc/stark.cu TILE)
 
 _lib = None
 
@@ -81,14 +84,30 @@ def _launch(fn: str, name: str, device, *args) -> None:
     launches[name] += 1
 
 
+def dag_plan(prog, rows: int) -> dict:
+    """dag_eval_kernel's launch for `prog` over `rows` rows on the current
+    card: its shared memory per block (`smem` bytes), its persistent grid,
+    the leaf words of one gather step, and the scratch (`scratch` bytes:
+    each block's [leaf word][tile row] region)."""
+    smem, grid, stage = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    err = _library().stark_dag_plan(prog.n_slots, max(rows, 1),
+                                    ctypes.byref(smem), ctypes.byref(grid),
+                                    ctypes.byref(stage))
+    if err:
+        raise RuntimeError(f"stark_dag_plan failed: cudaError {err}")
+    return {"smem": smem.value, "grid": grid.value, "stage": stage.value,
+            "scratch": 8 * grid.value * len(prog.leaves) * DAG_ROWS}
+
+
 def dag_eval(prog, sections: list, uniforms: np.ndarray, out: torch.Tensor,
              flags: torch.Tensor | None, *, rows: int,
              prime_stride: int) -> None:
     """Run `prog` (a `stark.dag.Program`) over `rows` rows through
-    csrc/stark.cu dag_eval_kernel: `sections` the tensors its loads name,
-    in `prog.sections` order ((rows,) or (rows, w)), `uniforms` its
-    (n, 3) uint64 table, `out` (rows, w) int64 and `flags` (int32, one
-    per flag output) on the same card."""
+    csrc/stark.cu dag_eval_kernel: `sections` the tensors its leaves name,
+    in `prog.sections` order ((rows,) or (rows, w), any row stride),
+    `uniforms` its (n, 3) uint64 table, `out` (rows, w) int64 and `flags`
+    (int32, one per flag output) on the same card. The kernel's leaf
+    scratch (`dag_plan`) is allocated here for the launch."""
     dev = out.device
     _check(out, "out", rows, None)
     if len(sections) != len(prog.sections):
@@ -111,18 +130,26 @@ def dag_eval(prog, sections: list, uniforms: np.ndarray, out: torch.Tensor,
                          f"values, {len(table)} given")
     if not rows or not prog.n_ops:
         return
+    with torch.cuda.device(dev):
+        plan = dag_plan(prog, rows)
     uni = torch.from_numpy(
         (table if len(table) else np.zeros((1, 3), np.uint64))
         .view(np.int64)).to(dev)
     code = prog.device_code(dev)
-    ptrs = (ctypes.c_void_p * len(sections))(
-        *[s.data_ptr() for s in sections])
-    strides = (ctypes.c_longlong * len(sections))(
-        *[s.stride(0) for s in sections])
+    sec, col, nxt = (prog.leaves.astype(np.int64).T if len(prog.leaves)
+                     else np.zeros((3, 1), np.int64))
+    ptrs = np.array([s.data_ptr() for s in sections] or [0], np.int64)
+    strides = np.array([s.stride(0) for s in sections] or [0], np.int64)
+    leaves = torch.from_numpy(np.stack(
+        [ptrs[sec] + 8 * col, strides[sec], nxt], axis=1)).to(dev)
+    scratch = torch.empty(max(plan["scratch"] // 8, 1), dtype=torch.int64,
+                          device=dev)
     _launch("stark_dag_eval", "dag_eval", dev, code.data_ptr(), prog.n_ops,
-            uni.data_ptr(), ptrs, strides, len(sections), out.data_ptr(),
-            out.stride(0), flags.data_ptr() if flags is not None else None,
-            rows, prime_stride % rows)
+            uni.data_ptr(), prog.n_slots,
+            leaves.data_ptr(), len(prog.leaves), scratch.data_ptr(),
+            plan["grid"], out.data_ptr(), out.stride(0),
+            flags.data_ptr() if flags is not None else None, rows,
+            prime_stride % rows)
 
 
 def grand_product(args) -> None:

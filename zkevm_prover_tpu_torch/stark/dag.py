@@ -2,30 +2,36 @@
 kernel, and the program's plain twin.
 
 `compile_program` turns `expr.Expr` outputs into a `Program`: a list of
-four-int instructions over per-row value slots. `dag_eval_kernel`
-(csrc/stark.cu, bound in `ops/stark_cuda.py`) runs it with one thread per
-row; `run_plain` runs the same instructions with one torch op (of
-`ops/goldilocks` and `ops/gl3`) per instruction over all rows. `run` picks
-the kernel for a CUDA output and the twin for a CPU one. Both give what
-`expr.eval_array` gives, bit for bit: every operation is the canonical
-field operation that `eval_array` applies to the same operand kinds
-(base + ext promotes the base, base x ext is `gl3.mul_base`, negation is
-componentwise, a row-invariant value broadcasts over the rows).
+five-int instructions over per-row value slots and leaf words.
+`dag_eval_kernel` (csrc/stark.cu, bound in `ops/stark_cuda.py`) runs it
+with one thread per row; `run_plain` runs the same instructions with one
+torch op (of `ops/goldilocks` and `ops/gl3`) per instruction over all
+rows. `run` picks the kernel for a CUDA output and the twin for a CPU one.
+Both give what `expr.eval_array` gives, bit for bit: every operation is the
+canonical field operation that `eval_array` applies to the same operand
+kinds (base + ext promotes the base, base x ext is `gl3.mul_base`,
+negation is componentwise, a row-invariant value broadcasts over the
+rows).
 
 The compiler:
   * evaluates row-invariant subtrees (challenges, publics, numbers, evals
     and what they make) once on the host, in `Program.uniform_values`: the
     program reads them from a small table;
+  * lists the program's leaf columns (committed, constant, x, Zi, each on
+    its row or on the next one) once, as `Program.leaves`: one entry per
+    word, a GL3 column's three words side by side, sorted by section, next
+    row and column. The kernel gathers a tile of rows of these words into
+    a column-major scratch, and an instruction reads a leaf as an operand
+    where it is used: no instruction loads it and no slot holds it;
   * orders the row-varying nodes by Sethi-Ullman need (the child that needs
     more slots first), so a Horner sum over a thousand constraints keeps
     its accumulator and one constraint's values live, where
     `eval_array`'s order keeps every constraint's value live until the
     chain's bottom is reached;
-  * evaluates a node shared by identity once, and loads a leaf column
-    (committed, constant, x, Zi) again at each use, right before the
-    instruction that reads it;
+  * evaluates a node shared by identity once;
   * gives slots by last use (a freed slot is taken again by the next
-    result);
+    result), and one forwarding slot to every result that only the next
+    instruction reads;
   * cuts the reuse of shared nodes every `chunk` Horner terms or outputs
     when the slots would pass `max_slots`: a later chunk computes a shared
     node again rather than keeping it live. The role of the JAX package's
@@ -33,10 +39,16 @@ The compiler:
     in one program and one launch, and the Horner chain itself runs on
     unchanged, so the result is the same field element by construction.
 
-Instructions are `(op, dst, a, b)` int32s. An operand `a`/`b` >= 0 is a
-slot, < 0 the uniform table's entry `-1 - operand`. Loads take a section
-index and a column in `a` and `b`; stores and flags an operand in `a` and
-an output column or flag index in `b`.
+Instructions are `(op, dst, a, b, c)` int32s. An operand in
+[0, MAX_SLOTS) is a slot, >= MAX_SLOTS the leaf word `operand - MAX_SLOTS`
+(a GL3 operand its three words from there), < 0 the uniform table's entry
+`-1 - operand`. A MUL whose one reader is the ADD or SUB right after it
+fuses with it (MADD a * b + c, MSUB a * b - c, SUBM c - a * b; the compiler
+puts such a product's multiply right before its sum where that holds no
+more slots). Stores and flags take an operand in `a` and an output column
+or flag index in `b`. The kernel reads each instruction as one 64-bit word
+(`Program.words`): op and dst 6 bits each, a, b and c 17-bit two's
+complement fields.
 """
 
 from __future__ import annotations
@@ -52,16 +64,19 @@ from ..ops import goldilocks as gl
 from . import expr as ex
 
 # opcodes (csrc/stark.cu `Op`)
-LOAD1, LOAD3, LOAD1_NEXT, LOAD3_NEXT = 0, 1, 2, 3
 STORE1, STORE3, STORE13 = 4, 5, 6     # STORE13: a base value as (v, 0, 0)
 FLAG1, FLAG3 = 7, 8
 NEG1, NEG3 = 9, 10
 ADD, SUB, MUL = 16, 20, 24            # + 2 * (a is ext) + (b is ext)
+# a product and a sum in one instruction: a * b + c, a * b - c, c - a * b
+# (+ 4 * (a is ext) + 2 * (b is ext) + (c is ext))
+MADD, MSUB, SUBM = 32, 40, 48
 
-# the slot array of one thread in dag_eval_kernel (csrc/stark.cu MAX_SLOTS)
+# the slots of one row in dag_eval_kernel's shared slot file
+# (csrc/stark.cu MAX_SLOTS); operands from here on name leaf words
 MAX_SLOTS = 32
-# the sections one program reads (csrc/stark.cu MAX_SECTIONS)
-MAX_SECTIONS = 8
+# an operand's field in the kernel's 64-bit instruction word
+_FIELD = 1 << 17
 
 _LEAVES = (ex.Cm, ex.Const, ex.X, ex.Zi)
 _UNIFORM_LEAVES = (ex.Challenge, ex.Public, ex.Number, ex.Eval)
@@ -82,14 +97,16 @@ class Output:
 
 @dataclasses.dataclass
 class Program:
-    """A compiled program: its `outputs`, `code` (n, 4) int32
-    instructions, the section keys its loads name by index, the
+    """A compiled program: its `outputs`, `code` (n, 5) int32
+    instructions, the section keys its leaves name by index, its leaf
+    words `leaves` (w, 3) int32 (section index, column, next row?), the
     row-invariant roots whose values fill the uniform table, the slots it
     needs, the chunk it was cut at (None: not cut) and its flag count."""
 
     outputs: list
     code: np.ndarray
     sections: list
+    leaves: np.ndarray
     uniform_roots: list
     n_slots: int
     chunk: int | None
@@ -114,16 +131,54 @@ class Program:
             table[i] = v if isinstance(v, tuple) else (v, 0, 0)
         return table
 
+    @property
+    def words(self) -> np.ndarray:
+        """The instructions as the kernel reads them, one uint64 each:
+        op | dst << 6 | (a mod 2^17) << 12 | (b mod 2^17) << 29 |
+        (c mod 2^17) << 46."""
+        c = (self.code.astype(np.int64) % _FIELD).astype(np.uint64)
+        return (c[:, 0] | c[:, 1] << 6 | c[:, 2] << 12 | c[:, 3] << 29
+                | c[:, 4] << 46)
+
     def device_code(self, device) -> torch.Tensor:
-        """The instructions as an int32 tensor on `device` (copied once)."""
+        """`words` as an int64 tensor on `device` (copied once)."""
         key = str(device)
         if key not in self._device_code:
-            self._device_code[key] = torch.from_numpy(self.code).to(device)
+            self._device_code[key] = torch.from_numpy(
+                self.words.view(np.int64)).to(device)
         return self._device_code[key]
 
     @property
     def n_ops(self) -> int:
         return len(self.code)
+
+    @property
+    def leaf_reads(self) -> int:
+        """Leaf words the instructions read per row (a GL3 operand three)."""
+        n = 0
+        for ins in self.code.tolist():
+            for x, ext in operands(*ins):
+                n += (3 if ext else 1) if x >= MAX_SLOTS else 0
+        return n
+
+
+def operands(op, dst, a, b, c):
+    """(operand, is ext) of each value an instruction reads."""
+    if op in (STORE1, STORE3, STORE13, FLAG1, FLAG3, NEG1, NEG3):
+        return ((a, op in (STORE3, FLAG3, NEG3)),)
+    if op >= MADD:
+        return ((a, bool(op & 4)), (b, bool(op & 2)), (c, bool(op & 1)))
+    return ((a, bool(op & 2)), (b, bool(op & 1)))
+
+
+def product_dims(op) -> tuple[int, int] | None:
+    """The dims of the product an instruction forms (MUL and the fused
+    ops), or None."""
+    if op >= MADD:
+        return (3 if op & 4 else 1, 3 if op & 2 else 1)
+    if op & ~3 == MUL:
+        return (3 if op & 2 else 1, 3 if op & 1 else 1)
+    return None
 
 
 class _Compiler:
@@ -135,6 +190,7 @@ class _Compiler:
         self.sections: list = []
         self.uniform_roots: list = []
         self.uniform_index: dict = {}
+        self.leaf_items: dict = {}   # (section, next, col, dim) -> index
         self.ops: list = []          # (op, dst vreg, a, b), operands vregs
         self.memo: dict[int, int] = {}
         self.n_vregs = 0
@@ -162,7 +218,7 @@ class _Compiler:
                               else 1)
                 need = 0
             elif isinstance(n, _LEAVES):
-                u, d, need = False, self.leaf_info(n)[2], 1
+                u, d, need = False, self.leaf_info(n)[2], 0
             elif isinstance(n, (ex.Neg, *_BINARY)):
                 u = all(self.uniform[id(c)] for c in kids)
                 d = max(self.dim[id(c)] for c in kids)
@@ -199,13 +255,24 @@ class _Compiler:
             self.uniform_roots.append(n)
         return ("u", self.uniform_index[k])
 
-    def load(self, n):
+    def leaf(self, n):
+        """The leaf item of a row leaf: one per (section, next row?,
+        column, dim), however often it is read."""
         key, col, dim = self.leaf_info(n)
-        nxt = getattr(n, "prime", False)
-        op = (LOAD3 if dim == 3 else LOAD1) + (2 if nxt else 0)
-        v = self._vreg()
-        self.ops.append((op, v, ("s", self._section(key)), ("i", col)))
-        return ("v", v)
+        item = (self._section(key), int(getattr(n, "prime", False)), col,
+                dim)
+        return ("l", self.leaf_items.setdefault(item, len(self.leaf_items)))
+
+    def leaf_words(self):
+        """(each item's first word, the (w, 3) word table): items sorted
+        by section, next row and column, a GL3 item's words side by
+        side, so that a tile's gather reads runs of adjacent columns."""
+        first, words = {}, []
+        for item in sorted(self.leaf_items):
+            sec, nxt, col, dim = item
+            first[self.leaf_items[item]] = len(words)
+            words += [(sec, col + k, nxt) for k in range(dim)]
+        return first, np.array(words, dtype=np.int32).reshape(-1, 3)
 
     def emit(self, n):
         """Operand holding node `n`'s value, emitting what computes it."""
@@ -213,20 +280,44 @@ class _Compiler:
         if self.uniform[k]:
             return self.operand(n)
         if isinstance(n, _LEAVES):
-            return self.load(n)
+            return self.leaf(n)
         if k in self.memo:
             return ("v", self.memo[k])
         kids = ex._children(n)
-        # inner children by need first, then the leaves, loaded last
+        # inner children by need first (leaves and uniform values emit
+        # nothing)
         inner = sorted((c for c in kids if not isinstance(c, _LEAVES)),
                        key=lambda c: -self.need[id(c)])
+        defer = self.deferred_product(n, inner)
         got = {}
         for c in inner:
-            got[id(c)] = self.emit(c)
+            if c is defer:
+                ops = {id(k): self.emit(k) for k in sorted(
+                    ex._children(c), key=lambda k: -self.need[id(k)])}
+            else:
+                got[id(c)] = self.emit(c)
+        if defer is not None:
+            got[id(defer)] = self.op(defer, ops[id(defer.a)],
+                                     ops[id(defer.b)])
         for c in kids:
             if id(c) not in got:
                 got[id(c)] = self.emit(c)
         return self.op(n, got[id(n.a)], got.get(id(getattr(n, "b", None))))
+
+    def deferred_product(self, n, inner):
+        """The product operand of a sum `n` whose multiply can wait until
+        right before the sum (its operands emitted in their turn), so that
+        the two fuse: not yet computed, and holding at most one slot for its
+        operands, as its result would."""
+        if not isinstance(n, (ex.Add, ex.Sub)):
+            return None
+        for c in reversed(inner):
+            if isinstance(c, ex.Mul) and not self.uniform[id(c)] \
+                    and id(c) not in self.memo and sum(
+                    not self.uniform[id(k)] and not isinstance(k, _LEAVES)
+                    for k in ex._children(c)) <= 1:
+                return c
+        return None
 
     def op(self, n, a, b):
         """Emit node `n`'s operation on operands a (and b); memoize it."""
@@ -275,47 +366,92 @@ class _Compiler:
         for i, (mul, add, term) in enumerate(levels):
             if (i + 1) % chunk == 0:
                 self.memo.clear()
-            m = self.op(mul, acc, self.operand(mul.b))
-            acc = self.op(add, m, self.emit(term))
+            t = self.emit(term)     # first, so that the multiply and the
+            m = self.op(mul, acc, self.operand(mul.b))  # sum fuse
+            acc = self.op(add, m, t)
         return acc
 
 
-def _allocate(ops, n_vregs):
-    """Slots by last use: (code (n, 4) int32, slots used)."""
-    last = [-1] * n_vregs
-    for i, (_, _, a, b) in enumerate(ops):
+def _fuse(ops):
+    """Each MUL whose one reader is the ADD or SUB right after it, with
+    that ADD or SUB, as one MADD, MSUB or SUBM; every op as (op, dst, a, b,
+    c), c None but for a fused op."""
+    uses: dict = {}
+    for _, _, a, b in ops:
         for x in (a, b):
             if x[0] == "v":
+                uses[x[1]] = uses.get(x[1], 0) + 1
+    out, i = [], 0
+    while i < len(ops):
+        op, dst, a, b = ops[i]
+        if op & ~3 == MUL and i + 1 < len(ops) and uses[dst] == 1:
+            op2, dst2, a2, b2 = ops[i + 1]
+            m = ("v", dst)
+            if op2 & ~3 in (ADD, SUB) and m in (a2, b2):
+                kind = MADD if op2 & ~3 == ADD else (
+                    MSUB if a2 == m else SUBM)
+                z, ez = (b2, op2 & 1) if a2 == m else (a2, op2 >> 1 & 1)
+                out.append((kind + 2 * (op & 3) + ez, dst2, a, b, z))
+                i += 2
+                continue
+        out.append((op, dst, a, b, None))
+        i += 1
+    return out
+
+
+def _allocate(ops, n_vregs, leaf_word):
+    """Slots by last use: (code (n, 5) int32, slots used). A result that
+    only the next instruction reads goes to one forwarding slot, the last
+    (each such value is read before the next one is written); a leaf
+    item's operand is MAX_SLOTS + its first word (`leaf_word`)."""
+    last = [-1] * n_vregs
+    readers: dict = {}
+    for i, (_, _, *xs) in enumerate(ops):
+        for x in xs:
+            if x is not None and x[0] == "v":
                 last[x[1]] = i
+                readers.setdefault(x[1], set()).add(i)
     free: list[int] = []
     slot_of = {}
     top = 0
-    code = np.zeros((len(ops), 4), dtype=np.int32)
+    forward = -1 - _FIELD           # placeholder for the forwarding slot
+    code = np.zeros((len(ops), 5), dtype=np.int32)
 
     def enc(x):
+        if x is None:
+            return 0
         kind, v = x
         if kind == "v":
             return slot_of[v]
         if kind == "u":
             return -1 - v
+        if kind == "l":
+            return MAX_SLOTS + leaf_word[v]
         return v
 
-    for i, (op, dst, a, b) in enumerate(ops):
+    for i, (op, dst, *xs) in enumerate(ops):
         code[i, 0] = op
-        code[i, 2], code[i, 3] = enc(a), enc(b)
-        for x in {a, b}:
-            if x[0] == "v" and last[x[1]] == i:
+        code[i, 2:] = [enc(x) for x in xs]
+        for x in set(xs):
+            if x is not None and x[0] == "v" and last[x[1]] == i \
+                    and slot_of[x[1]] != forward:
                 heapq.heappush(free, slot_of[x[1]])
         if dst is None:
             continue
         if last[dst] < 0:
             raise AssertionError("a value nothing reads")
-        if free:
+        if readers[dst] == {i + 1}:
+            s = forward
+        elif free:
             s = heapq.heappop(free)
         else:
             s, top = top, top + 1
         slot_of[dst] = s
         code[i, 1] = s
+    used = code[:, 1:] == forward
+    if used.any():
+        code[:, 1:][used] = top
+        top += 1
     return code, top
 
 
@@ -326,8 +462,10 @@ def compile_program(outputs, leaf_info, *,
     `leaf_info(node)` gives a row leaf's (section key, column, dim): a Cm's
     committed section, position and dim, a Const's constant section and
     id, x's and Zi's own one-column sections. When the slots would pass
-    `max_slots`, the shared nodes' reuse is cut every 256, 64, 16, 4, 1
-    terms or outputs until they fit; raises if even 1 does not."""
+    `max_slots` (at most MAX_SLOTS: operands from there on name leaf
+    words), the shared nodes' reuse is cut every 256, 64, 16, 4, 1 terms
+    or outputs until they fit; raises if even 1 does not."""
+    max_slots = min(max_slots, MAX_SLOTS)
     for ch in (None, 256, 64, 16, 4, 1):
         c = _Compiler(leaf_info)
         for o in outputs:
@@ -343,14 +481,16 @@ def compile_program(outputs, leaf_info, *,
                 op = STORE3 if dim == 3 else (STORE13 if o.ext else STORE1)
                 arg = o.col
             c.ops.append((op, None, src, ("i", arg)))
-        code, slots = _allocate(c.ops, c.n_vregs)
+        first, leaves = c.leaf_words()
+        code, slots = _allocate(_fuse(c.ops), c.n_vregs, first)
         if slots <= max_slots:
-            if len(c.sections) > MAX_SECTIONS:
-                raise ValueError(f"{len(c.sections)} sections, at most "
-                                 f"{MAX_SECTIONS}")
+            if len(code) and not (-_FIELD // 2 <= code[:, 2:].min()
+                                  and code[:, 2:].max() < _FIELD // 2):
+                raise ValueError("an operand, output column or flag past "
+                                 "the instruction word's 17-bit fields")
             n_flags = 1 + max((o.flag for o in outputs
                                if o.flag is not None), default=-1)
-            return Program(list(outputs), code, list(c.sections),
+            return Program(list(outputs), code, list(c.sections), leaves,
                            c.uniform_roots, slots, ch, n_flags)
     raise ValueError(f"the program needs {slots} slots at chunk {ch}, more "
                      f"than {max_slots}")
@@ -378,25 +518,39 @@ def run_plain(prog: Program, sections: dict, uniforms: np.ndarray, out,
     secs = [sections[k] for k in prog.sections]
     table = gl.from_u64(uniforms, dev) if len(uniforms) else None
     slots: list = [None] * max(prog.n_slots, 1)
+    leaves = prog.leaves.tolist()
 
     def arg(x, ext):
+        if x >= MAX_SLOTS:
+            sec, col, nxt = leaves[x - MAX_SLOTS]
+            s = secs[sec]
+            if ext:
+                v = s[:, col:col + 3]
+            else:
+                v = s[:, col] if s.ndim == 2 else s
+            return torch.roll(v, -prime_stride, dims=0) if nxt else v
         if x >= 0:
             return slots[x]
         row = table[-1 - x]
         return row if ext else row[0]
 
-    for op, dst, a, b in prog.code.tolist():
-        if op <= LOAD3_NEXT:
-            s = secs[a]
-            ext = op & 1
-            if ext:
-                v = s[:, b:b + 3]
-            else:
-                v = s[:, b] if s.ndim == 2 else s
-            if op >= LOAD1_NEXT:
-                v = torch.roll(v, -prime_stride, dims=0)
-            slots[dst] = v
-        elif op in (STORE1, STORE3, STORE13):
+    def product(x, y, ea, eb):
+        if ea and eb:
+            return gl3.mul(x, y)
+        if ea:
+            return gl3.mul_base(x, y)
+        if eb:
+            return gl3.mul_base(y, x)
+        return gl.mul(x, y)
+
+    def total(x, y, ea, eb, sub):
+        if ea != eb:
+            x = x if ea else gl3.from_base(x)
+            y = y if eb else gl3.from_base(y)
+        return gl.sub(x, y) if sub else gl.add(x, y)
+
+    for op, dst, a, b, c in prog.code.tolist():
+        if op in (STORE1, STORE3, STORE13):
             v = arg(a, op == STORE3)
             if op == STORE1:
                 out[:, b] = v
@@ -405,29 +559,30 @@ def run_plain(prog: Program, sections: dict, uniforms: np.ndarray, out,
             else:
                 out[:, b] = v
                 out[:, b + 1:b + 3] = 0
-        elif op in (FLAG1, FLAG3):
+            continue
+        if op in (FLAG1, FLAG3):
             if bool((arg(a, op == FLAG3) != 0).any()):
                 flags[b] = 1
-        elif op in (NEG1, NEG3):
-            slots[dst] = gl.neg(arg(a, op == NEG3))
+            continue
+        if op in (NEG1, NEG3):
+            v = gl.neg(arg(a, op == NEG3))
+        elif op >= MADD:
+            kind = op & ~7
+            ea, eb, ec = bool(op & 4), bool(op & 2), bool(op & 1)
+            m = product(arg(a, ea), arg(b, eb), ea, eb)
+            z = arg(c, ec)
+            if kind == SUBM:
+                v = total(z, m, ec, ea or eb, True)
+            else:
+                v = total(m, z, ea or eb, ec, kind == MSUB)
         else:
             kind, ea, eb = op & ~3, bool(op & 2), bool(op & 1)
             x, y = arg(a, ea), arg(b, eb)
             if kind == MUL:
-                if ea and eb:
-                    v = gl3.mul(x, y)
-                elif ea:
-                    v = gl3.mul_base(x, y)
-                elif eb:
-                    v = gl3.mul_base(y, x)
-                else:
-                    v = gl.mul(x, y)
+                v = product(x, y, ea, eb)
             else:
-                if ea != eb:
-                    x = x if ea else gl3.from_base(x)
-                    y = y if eb else gl3.from_base(y)
-                v = gl.add(x, y) if kind == ADD else gl.sub(x, y)
-            slots[dst] = v
+                v = total(x, y, ea, eb, kind == SUB)
+        slots[dst] = v
 
 
 def run(prog: Program, sections: dict, uniforms: np.ndarray, out,

@@ -33,15 +33,21 @@ Phases (any failure exits nonzero; no phase catches and continues):
     fixed-base products at 2^22 scalars, 1,024 sampled against the host's
     g1_mul_gen / g2_mul_gen; the G1 MSM at 2^10 .. 2^22 points and the G2
     MSM at 2^10 .. 2^20 against g*_mul_gen(sum s_i k_i mod r) (their
-    bases k_i * G from the fixed-base kernel), the host MSM at 2^10 (G2
-    2^6), the plain twins at 2^10 and 2^16 and the edge cases (zero
-    scalars, scalars >= r, repeated points, P beside -P, infinity); the
+    bases k_i * G from the fixed-base kernel), the witness-like skewed
+    sets (G1 2^21, G2 2^20) the same way, the host MSM at 2^10 (G2
+    2^6), the plain twins at 2^10 and 2^16, the edge cases (zero
+    scalars, scalars >= r, repeated points, P beside -P, infinity) and
+    the MSM sort's signed digits at 2^16 against `signed_digits`, then one
+    line each of the per-kernel device time of a G1 2^22 and a G2 2^20
+    MSM under torch.profiler; the
     Fr NTT at 2^10 .. 2^22 against its twin (2^10, 2^16), inverse after
     forward and host Horner evaluations at 2^22; the pointwise step
-    against its twin; each timed beside its bound (`msm_bound`,
-    `fixed_base_bound`, `ntt_bound`, `pointwise_bound`: 32-bit multiply-
-    adds of its Montgomery products at the IMAD rate against its bytes)
-    and its twin's time (at 2^16; the NTT and pointwise also at 2^22);
+    against its twin; each timed beside its bound (`msm_bound`: the least
+    over windows of the signed-digit Pippenger's batch-affine additions,
+    logged beside the MSM's times before its redesign; `fixed_base_bound`, `ntt_bound`,
+    `pointwise_bound`: 32-bit multiply-adds of its Montgomery products at
+    the IMAD rate against its bytes) and its twin's time (at 2^16; the NTT
+    and pointwise also at 2^22);
     the kernels line gives ms, plain_ms and bound_ms at one size
     (`log2_size`: 2^16 for the MSMs and the fixed base, 2^22 for the NTT
     and the pointwise step) and every size in its maps;
@@ -762,14 +768,58 @@ def _bn_bound(products: float, n_bytes: float, redcs: float = 0
                       n_bytes)
 
 
-def msm_bound(mixed_adds: int, c: int, n: int, g2: bool) -> tuple[float, str]:
-    """(least ms, what bounds it) for an MSM of n points: this run's mixed
-    additions (its nonzero digits) and 2 * 2^c * ceil(254 / c) full
-    additions of the running sums, against the points and scalars read
-    once."""
-    adds = (mixed_adds * BN_MADD[g2]
-            + 2 * (1 << c) * (-(-254 // c)) * BN_JADD[g2])
-    return _bn_bound(adds, n * ((128 if g2 else 64) + 32))
+# The least work of an MSM takes batch-affine additions (the kernels add
+# in XYZZ coordinates, bn254_device.MSM_MADD / MSM_ADD, which cost more):
+# lambda = (y2 - y1) / (x2 - x1), x3 = lambda^2 - x1 - x2,
+# y3 = lambda (x1 - x3) - y1 is 2 products and a squaring, and an
+# addition's share of its batch's inversion by Montgomery's trick 3
+# products, so 6 Fp products; over Fp2 5 products and a squaring, 17. Each
+# batch adds one inversion (BN_INV; over Fp2 4 more).
+BN_AFFINE_ADD = {False: 5 + 1, True: 5 * 3 + 2}
+# the MSM's times in phase 3d before its Hopper redesign (unsigned
+# windows of at most 13 bits, torch.sort of 64-bit keys, one block a window
+# in the reduction; NVIDIA H100 80GB HBM3 at 700 W), each logged beside
+# this run's bound
+MSM_MS_BEFORE = {"g1_msm": {10: 4.7104, 16: 11.3367, 20: 23.2291,
+                            22: 62.0796},
+                 "g2_msm": {10: 22.6662, 16: 45.082, 20: 89.6142}}
+
+
+def msm_bound(scalars, points, g2: bool) -> tuple[float, str, int]:
+    """(least ms, what bounds it, the window it takes) for an MSM over
+    `points` with `scalars` (card tensors): the least over window widths c
+    of the signed-digit Pippenger's products, from this run's digits. Each
+    bucket sums its points (the nonzero digits of points not at infinity)
+    as a pairwise tree of batch-affine additions, k points in k - 1
+    additions, one batch a level; the running sums take 2 additions a
+    bucket, in XYZZ with no inversion or batch-affine with one batch a
+    bucket across the windows, whichever is less. Against the points and
+    scalars read once."""
+    import torch
+
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+
+    n = scalars.shape[0]
+    live = scalars[(points.reshape(n, -1) != 0).any(-1)]
+    add, inv = BN_AFFINE_ADD[g2], BN_INV + (4 if g2 else 0)
+    best = None
+    for c in range(2, bd.MSM_MAX_WINDOW + 1):
+        nwin, nb = bd.msm_windows(c), 1 << (c - 1)
+        base = torch.arange(nwin, device=scalars.device) * nb - 1
+        counts = torch.zeros(nwin * nb, dtype=torch.int64,
+                             device=scalars.device)
+        for i in range(0, live.shape[0], 1 << 19):
+            d = bd.signed_digits(live[i:i + (1 << 19)], c)
+            counts += torch.bincount((base + d.abs())[d != 0],
+                                     minlength=nwin * nb)
+        acc = ((int(counts.sum()) - int((counts > 0).sum())) * add
+               + (int(counts.max()) - 1).bit_length() * inv)
+        sums = min(2 * nb * nwin * bd.MSM_ADD[g2],
+                   2 * nb * nwin * add + nb * inv)
+        if best is None or acc + sums < best[0]:
+            best = (acc + sums, c)
+    ms, by = _bn_bound(best[0], n * ((128 if g2 else 64) + 32))
+    return ms, by, best[1]
 
 
 def fixed_base_bound(nonzero_digits: int, n: int, g2: bool
@@ -815,16 +865,6 @@ BN254_KERNELS = {
 }
 
 
-def _random_fr(torch, n: int, seed: int):
-    """(n, 8) int32 scalars below r on the card (top limb below r's)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randint(-(1 << 31), 1 << 31, (n, 8), dtype=torch.int32,
-                      device="cuda", generator=g)
-    x[:, 7] = torch.randint(0, 0x30644E72, (n,), dtype=torch.int32,
-                            device="cuda", generator=g)
-    return x
-
-
 def _bn_entry(name: str, times: dict, plain: dict, bounds: dict,
               at: int) -> dict:
     """The kernels-line entry: ms, plain_ms and bound_ms at one size, 2^at
@@ -848,7 +888,8 @@ def check_bn254(torch) -> dict:
     kernel, so that the oracle is one g1_mul_gen(sum s_i k_i mod r); the
     MSMs against the host Pippenger at 2^10 (G2: the host's at 2^6) and the
     plain twins at 2^10 and 2^16, with zero scalars, scalars >= r,
-    repeated points and a point beside its negation; the Fr NTT at 2^10,
+    repeated points and a point beside its negation; the skewed sets; the
+    sort's digits (`check_msm_digits`); the Fr NTT at 2^10,
     2^16, 2^20 and 2^22 (the plain twin at 2^10 and 2^16 with and without
     the coset shifts, inverse after forward the identity at every size,
     outputs at 2^22 against host Horner evaluations); the pointwise step
@@ -858,6 +899,7 @@ def check_bn254(torch) -> dict:
     time: none (no PyTorch call computes these). Returns the kernels-line
     entry of each (without `launches`), its ms, plain_ms and bound_ms at
     the largest size its twin was timed at."""
+    from zkevm_prover_tpu_torch import card_bench
     from zkevm_prover_tpu_torch.ops import bn254 as host
     from zkevm_prover_tpu_torch.ops import bn254_device as bd
     from zkevm_prover_tpu_torch.ops import msm as msm_ops
@@ -875,7 +917,7 @@ def check_bn254(torch) -> dict:
 
     # the CRS kernel: 2^22 scalars, 1,024 sampled indices on the host
     big = 22
-    k = _random_fr(torch, 1 << big, 1)
+    k = card_bench.random_fr(torch, 1 << big, 1)
     k[:3] = torch.from_numpy(bd.ints_to_limbs([0, 1, R - 1]).copy()).cuda()
     idx = torch.from_numpy(np.concatenate(
         [[0, 1, 2], rng.choice(1 << big, 1021, replace=False)])).cuda()
@@ -918,14 +960,14 @@ def check_bn254(torch) -> dict:
 
     # the MSMs over those bases: s random, the oracle sum s_i k_i mod r
     # (the plain twins' Fr products on the card, summed exactly)
-    s = _random_fr(torch, 1 << big, 2)
+    s = card_bench.random_fr(torch, 1 << big, 2)
 
     def fr_dot(a, b):
         prod = bd.f_mul(bd.FR, bd.f_from_u32(a), bd.f_from_u32(b))
         return ints(bd.f_to_u32(bd.FR, prod.sum(0, keepdim=True)))[0]
 
-    for g2, name, sizes in ((False, "g1_msm", (10, 16, 20, 22)),
-                            (True, "g2_msm", (10, 16, 20))):
+    for g2, name, sizes, skew in ((False, "g1_msm", (10, 16, 20, 22), 21),
+                                  (True, "g2_msm", (10, 16, 20), 20)):
         bases = bases2 if g2 else bases1
         msm = bd.g2_msm if g2 else bd.g1_msm
         unpack = bd.unpack_g2 if g2 else bd.unpack_g1
@@ -942,11 +984,21 @@ def check_bn254(torch) -> dict:
                                       name, bits)
                 if bits == 16:
                     plain[bits] = p
-            c = bd.msm_window(n)
             times[bits] = _time_ms(lambda: msm(bases[:n], s[:n]),
                                    reps=3 if bits >= 20 else 10)
-            bounds[bits] = msm_bound(
-                nonzero_digits(s[:n], c, bd.msm_windows(c)), c, n, g2)
+            bounds[bits] = msm_bound(s[:n], bases[:n], g2)
+        check_msm_digits(torch, bd, bases[:1 << 16], s[:1 << 16], g2, name)
+        # the witness-like skewed set (card_bench.skewed_scalars: half the
+        # scalars 0 or 1, a quarter below 2^64, a quarter dense), about one
+        # base in 64 at infinity (k_i = 0)
+        ks = card_bench.skewed_bases_k(torch, 1 << skew, 70 + skew)
+        ss = card_bench.skewed_scalars(torch, 1 << skew, 80 + skew)
+        bs = bd.fixed_base(ks, g2)
+        if unpack(msm(bs, ss))[0] != mul(fr_dot(ks, ss)):
+            _fail(f"{name} skewed 2^{skew} != g*_mul_gen(sum s_i k_i)")
+        skew_ms = _time_ms(lambda: msm(bs, ss), reps=3)
+        skew_bound = msm_bound(ss, bs, g2)
+        del ks, ss, bs
         # the host's own MSM at a small size, and the edge cases through
         # ops/msm.py with Python ints (scalars >= r reduced there)
         hn = 6 if g2 else 10
@@ -974,12 +1026,27 @@ def check_bn254(torch) -> dict:
                   "repeated points, P beside -P, infinity) != the host's")
         _log(f"{name}: == g*_mul_gen(sum s_i k_i mod r) at 2^"
              + ", 2^".join(str(b) for b in sizes)
-             + f", == the host MSM at 2^{hn}, == the plain twin at 2^10 and "
-             f"2^16, the edge cases == the host's; kernel ms "
-             + json.dumps({b: round(v, 4) for b, v in times.items()})
-             + ", bound ms " + json.dumps(
-                 {b: [round(v[0], 4), v[1]] for b, v in bounds.items()})
-             + f", plain 2^16 {plain[16]:.1f} ms")
+             + f" and on the skewed set at 2^{skew}, == the host MSM at "
+             f"2^{hn}, == the plain twin at 2^10 and 2^16, the edge cases "
+             "== the host's, the sort's digits at 2^16 == signed_digits; "
+             "kernel ms " + json.dumps({b: round(v, 4)
+                                        for b, v in times.items()})
+             + ", bound ms, by, window " + json.dumps(
+                 {b: [round(v[0], 4), v[1], v[2]] for b, v in bounds.items()})
+             + ", share of the bound " + json.dumps(
+                 {b: round(bounds[b][0] / v, 4) for b, v in times.items()})
+             + ", before the redesign ms and share " + json.dumps(
+                 {b: [v, round(bounds[b][0] / v, 4)]
+                  for b, v in MSM_MS_BEFORE[name].items()})
+             + f"; skewed 2^{skew} {skew_ms:.4f} ms, bound "
+             f"{skew_bound[0]:.4f} ms (window {skew_bound[2]}), share "
+             f"{skew_bound[0] / skew_ms:.4f}; plain 2^16 {plain[16]:.1f} ms")
+        # the per-stage device time of one call at the largest size
+        top = sizes[-1]
+        prof = card_bench.device_profile(
+            torch, lambda: msm(bases[:1 << top], s[:1 << top]))
+        _log(f"{name} 2^{top} stages (torch.profiler, one call): "
+             + json.dumps(prof))
         entries[name] = _bn_entry(name, times, plain, bounds, 16)
     del bases1, bases2
     torch.cuda.empty_cache()
@@ -988,7 +1055,7 @@ def check_bn254(torch) -> dict:
     times, plain, bounds = {}, {}, {}
     for bits in (10, 16, 20, 22):
         n = 1 << bits
-        x = _random_fr(torch, n, 30 + bits)
+        x = card_bench.random_fr(torch, n, 30 + bits)
         y = bd.fr_ntt(x)
         if not torch.equal(bd.fr_ntt(y, inverse=True), x):
             _fail(f"fr_ntt 2^{bits}: inverse after forward != identity")
@@ -1024,7 +1091,8 @@ def check_bn254(torch) -> dict:
     entries["fr_ntt"] = _bn_entry("fr_ntt", times, plain, bounds, 22)
     times, plain, bounds = {}, {}, {}
     for bits in (16, 22):
-        a, b, c = (_random_fr(torch, 1 << bits, 50 + i) for i in range(3))
+        a, b, c = (card_bench.random_fr(torch, 1 << bits, 50 + i)
+                   for i in range(3))
         if bits == 16:
             if not torch.equal(bd.fr_pointwise(a, b, c, 12345),
                                bd.fr_pointwise_plain(a, b, c, 12345)):
@@ -1045,6 +1113,31 @@ def check_bn254(torch) -> dict:
          f"{time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     return entries
+
+
+def check_msm_digits(torch, bd, points, scalars, g2, name) -> None:
+    """The MSM's sort (count, scan, scatter: `bn254_cuda.msm_buckets`)
+    put each point of each nonzero digit in its bucket once, with its
+    sign: the digits read back from the buckets == `bd.signed_digits` (zero
+    for a point at infinity)."""
+    from zkevm_prover_tpu_torch.ops import bn254_cuda as bcu
+
+    plan, entries, offsets = bcu.msm_buckets(points, scalars, g2)
+    n, nb = points.shape[0], plan["nb"]
+    off = offsets.long()
+    total = int(off[-1])
+    ent = entries[:total].long() & 0xFFFFFFFF
+    idx, neg = ent & 0x7FFFFFFF, (ent >> 31).bool()
+    key = torch.searchsorted(off, torch.arange(total, device=off.device),
+                             right=True) - 1
+    mag = key % nb + 1
+    got = torch.zeros((n, plan["nwin"]), dtype=torch.int64,
+                      device=off.device)
+    got[idx, key // nb] = torch.where(neg, -mag, mag)
+    want = bd.signed_digits(scalars, plan["c"])
+    want[(points.reshape(n, -1) == 0).all(-1)] = 0
+    if int((got != 0).sum()) != total or not torch.equal(got, want):
+        _fail(f"{name}: the sort's digits at {n} points != signed_digits")
 
 
 def msm_plain_checked(torch, bd, bases, scalars, g2, want, name, bits):

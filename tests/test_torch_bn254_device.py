@@ -123,19 +123,81 @@ def test_group_law_matches_host(g2):
         [dbl(a) if a is not jbn.INF else jbn.INF for a in ps]
 
 
-@pytest.mark.parametrize("n", [16, 64, 256])
-def test_g1_msm_twin_matches_host(n):
-    pts = _points(n, n)
-    sc = [random.Random(n + 1).randrange(R) for _ in range(n)]
+def _witness_scalars(n, seed):
+    """Scalars shaped like a Groth16 witness: half 0 or 1, a quarter below
+    2^64, a quarter dense."""
+    rng = random.Random(seed)
+    return [rng.randrange(2) if i % 4 < 2 else
+            rng.randrange(1 << 64) if i % 4 == 2 else rng.randrange(R)
+            for i in range(n)]
+
+
+def _msm_inputs(n, seed, kind, g2=False):
+    """(points, scalars): random scalars, or witness-like ones with every
+    seventh point at infinity."""
+    pts = _points(n, seed, g2)
+    if kind == "random":
+        return pts, [random.Random(seed + 1).randrange(R) for _ in range(n)]
+    return ([jbn.INF if i % 7 == 3 else p for i, p in enumerate(pts)],
+            _witness_scalars(n, seed + 1))
+
+
+@pytest.mark.parametrize("n,kind", [(16, "random"), (64, "random"),
+                                    (256, "random"), (64, "skewed")])
+def test_g1_msm_twin_matches_host(n, kind):
+    pts, sc = _msm_inputs(n, n, kind)
     got = bd.msm_plain(bd.pack_g1(pts, "cpu"), bd.pack_fr(sc, "cpu"), False)
     assert bd.unpack_g1(got)[0] == jbn.g1_msm(pts, sc)
 
 
-def test_g2_msm_twin_matches_host():
-    pts = _points(16, 7, True)
-    sc = [random.Random(8).randrange(R) for _ in range(16)]
+@pytest.mark.parametrize("kind", ["random", "skewed"])
+def test_g2_msm_twin_matches_host(kind):
+    pts, sc = _msm_inputs(16, 7, kind, True)
     got = bd.msm_plain(bd.pack_g2(pts, "cpu"), bd.pack_fr(sc, "cpu"), True)
     assert bd.unpack_g2(got)[0] == jbn.g2_msm(pts, sc)
+
+
+_CARRY = sum(((1 << 17) - 1) << (17 * w) for w in range(14))  # all ones
+
+
+@pytest.mark.parametrize("c", [2, 5, 8, 13, 16, 17, 22])
+def test_signed_digits_recode_the_scalar(c):
+    """sum_w d_w 2^(c w) == s with |d_w| <= 2^(c-1), for random scalars
+    and 0, 1, r - 1, 2^254 - 1, and windows of all ones whose carries run
+    into the top window."""
+    rng = random.Random(c)
+    xs = [0, 1, R - 1, (1 << 254) - 1, _CARRY, (1 << 253) | _CARRY,
+          ((1 << (c * (254 // c))) - 1)] + [rng.randrange(R)
+                                            for _ in range(25)]
+    d = bd.signed_digits(torch.from_numpy(bd.ints_to_limbs(xs).copy()), c)
+    assert d.shape == (len(xs), bd.msm_windows(c))
+    assert int(d.abs().max()) <= 1 << (c - 1)
+    assert [sum(int(v) << (c * w) for w, v in enumerate(row))
+            for row in d.tolist()] == xs
+
+
+@pytest.mark.parametrize("n", [1, 1 << 10, 1 << 16, 1 << 20, 1 << 21,
+                               1 << 22])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_msm_window_is_the_cost_minimum(n, g2):
+    """msm_window(n) minimises the signed-digit Pippenger's Fp products,
+    n mixed additions and 2^c full additions per window of
+    floor(254 / c) + 1, over every width; the kernels' plan (msm_plan)
+    takes it and fits its chunks, tree passes and reduction to it."""
+    madd, add = bd.MSM_MADD[g2], bd.MSM_ADD[g2]
+    cost = {c: (254 // c + 1) * (n * madd + (1 << c) * add)
+            for c in range(2, 23)}
+    c = bd.msm_window(n, g2)
+    assert cost[c] == min(cost.values()) == bd.msm_cost(n, c, g2)
+    assert c == {1: 2, 1 << 10: 8, 1 << 16: 13, 1 << 20: 16, 1 << 21: 17,
+                 1 << 22: 17}[n]
+    plan = bn254_cuda.msm_plan(n, g2)
+    assert (plan["c"], plan["nwin"], plan["nb"]) == (c, 254 // c + 1,
+                                                     1 << (c - 1))
+    assert plan["nchunks"] * plan["L"] >= plan["nwin"] * n
+    assert 8 ** plan["passes"] >= -(-n // plan["L"]) + 1   # any bucket
+    assert plan["ls"] * plan["tr"] * plan["bw"] == plan["nb"]
+    assert max(plan["bw"], plan["tr"]) <= bn254_cuda.REDUCE_MAX
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])

@@ -2,28 +2,44 @@
 // interface (ops/bn254_cuda.py binds it with ctypes), on csrc/bn254.cuh.
 //
 // What each replaces, and what bounds it on this card:
-//  - msm_prep_kernel, msm_bucket_kernel, msm_bucket_sum_kernel,
-//    msm_reduce_kernel, msm_combine_kernel: the Pippenger MSM over G1 (Fp) and G2 (Fp2), the
-//    port of zkevm_prover_tpu/ops/bn254_device.py _msm_device :390 (with
-//    _all_window_digits :298, _segmented_bucket_sums :348 and
-//    _bucket_reduce :380), which XLA fuses on the TPU. The JAX package
-//    scans each window's sorted points with a log-depth segmented scan of
-//    the group law (the TPU has no fast serial loop); here the prep kernel
-//    writes each point's window digits as sort keys (window << c | digit;
-//    digit 0, a zero scalar and the point at infinity sort last) and the
-//    points in Montgomery form, torch.sort orders the keys (plumbing), and
-//    one thread walks each chunk of a (window, bucket) segment with mixed
-//    Jacobian + affine additions: a segment is cut into chunks of at most
-//    L points (L = max(256, longest segment / 1024), so that a skewed
-//    scalar set, a witness of bits or the top window's few digits, has no
-//    thread walking a large share of the points alone), and one thread
-//    per bucket adds its chunks' sums. The reduce kernel gives each window
-//    one block of 128 threads: each thread a run of buckets (the running
-//    sum and the weighted sum, lifted by the run's offset with a
-//    double-and-add), the parts summed by a tree in shared memory; the
-//    combine kernel joins the windows high to low with c doublings each
-//    and returns the affine point in ordinary form.
-//    Bound: operations, n * ceil(254 / c) mixed additions.
+//  - msm_count_kernel, msm_scan_*_kernel, msm_scatter_kernel,
+//    msm_bucket_kernel, msm_tree_kernel, msm_reduce_kernel,
+//    msm_window_kernel, msm_horner_kernel: the Pippenger MSM over G1 (Fp)
+//    and G2 (Fp2), the port of zkevm_prover_tpu/ops/bn254_device.py
+//    _msm_device :390 (with _all_window_digits :298,
+//    _segmented_bucket_sums :348 and _bucket_reduce :380), which XLA fuses
+//    on the TPU, where a log-depth segmented scan of the group law stands
+//    in for a serial loop. Here, for the card:
+//    * signed c-bit digits (|d| <= 2^(c-1), a negative one adds -P: y
+//      becomes p - y at load), so a window has 2^(c-1) buckets; c is the
+//      least of the cost model n * (254/c + 1) mixed additions against
+//      2^c (254/c + 1) full ones (ops/bn254_device.py msm_window);
+//    * the bucket sort on the card with no host sync: a histogram of
+//      (window, |digit|) with warp-aggregated atomics, a three-kernel
+//      exclusive scan, a scatter of 32-bit point indices with the sign in
+//      bit 31, a window at a time. Every launch's size is fixed from n;
+//    * equal chunks of L places over the whole sorted order, one thread
+//      each, whatever the buckets: a thread's mixed additions follow one
+//      another (each needs the last), so a skewed bucket (a witness's 0/1
+//      digits hold half the points) is spread over many threads, and the
+//      buckets that span chunks are joined by radix-4 tree passes. The
+//      next point is copied into a shared-memory ring (cp.async, 16-byte
+//      pieces) while the thread adds the last one;
+//    * the reduction over the whole card: each window's buckets are cut
+//      into runs of Ls, one thread each (the running-sum trick, lifted by
+//      the run's offset with a double-and-add), a tree in shared memory per
+//      block, then per window;
+//    * the Horner pass over the windows: one thread, about 254 Jacobian
+//      doublings in a row, the one serial part left.
+//    The buckets and sums are XYZZ (bn254.cuh): 10 products a mixed
+//    addition and 14 a full one, against Jacobian's 11 and 16. The field
+//    arithmetic stays the CIOS of bn254.cuh on the integer pipes: a
+//    256-bit Montgomery product is 64 32-bit limb products and carry
+//    chains, which the tensor cores (8-bit and floating-point products
+//    summed without carries) do not give in a simple design.
+//    Bound: operations, the least over c of a mixed addition per nonzero
+//    signed digit and 2^c (254/c + 1) full additions (chip_smoke.py
+//    msm_bound).
 //  - fixed_base_kernel: k * G1 and k * G2 for a batch of scalars, what
 //    groth16_setup's loops compute one at a time on the host
 //    (zkevm_prover_tpu/snark/groth16.py:89-119 through ops/bn254.py
@@ -121,19 +137,6 @@ __device__ __forceinline__ void mont_out(G2F& a) {
   from_mont(a.c1, a.c1);
 }
 
-template <class F>
-__device__ __forceinline__ void load_jac(Jac<F>& p, const uint32_t* src) {
-  load(p.X, src);
-  load(p.Y, src + words<F>());
-  load(p.Z, src + 2 * words<F>());
-}
-template <class F>
-__device__ __forceinline__ void store_jac(uint32_t* dst, const Jac<F>& p) {
-  store(dst, p.X);
-  store(dst + words<F>(), p.Y);
-  store(dst + 2 * words<F>(), p.Z);
-}
-
 // the affine point in ordinary form, zeros for infinity
 template <class F>
 __device__ __forceinline__ void store_affine(uint32_t* dst, const Jac<F>& p) {
@@ -167,148 +170,561 @@ int blocks_for(int64_t n, int threads = THREADS) {
 // MSM
 // ---------------------------------------------------------------------------
 
-// keys[w * n + i] = w << c | digit_w(s_i), or nwin << c (last) for a zero
-// digit, a zero scalar or the point at infinity; the points to Montgomery
-template <class F>
-__global__ void __launch_bounds__(THREADS)
-    msm_prep_kernel(const uint32_t* __restrict__ pts,
-                    const uint32_t* __restrict__ scalars, int64_t n, int c,
-                    int nwin, int64_t* __restrict__ keys,
-                    uint32_t* __restrict__ pts_mont) {
-  const int64_t i = thread_id();
-  if (i >= n) return;
-  constexpr int W = words<F>();
-  Aff<F> q;
-  load(q.x, pts + i * 2 * W);
-  load(q.y, pts + i * 2 * W + W);
-  const bool inf = fis_zero(q.x) && fis_zero(q.y);
-  mont_in(q.x);
-  mont_in(q.y);
-  store(pts_mont + i * 2 * W, q.x);
-  store(pts_mont + i * 2 * W + W, q.y);
-  uint32_t s[8];
-  uint32_t any = 0;
+constexpr int MSM_THREADS = 128;     // bucket and tree blocks
+constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_ITEMS = 4;
+constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
+constexpr uint32_t NO_KEY = 0xffffffffu;
+constexpr uint32_t NEG = 0x80000000u;  // a sorted entry's sign bit
+
+// N words (a multiple of 4) from 16-byte aligned device memory
+template <int N>
+__device__ __forceinline__ void ld16(uint32_t (&w)[N], const uint32_t* p) {
+  const uint4* v = reinterpret_cast<const uint4*>(p);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[j] = scalars[i * 8 + j];
-    any |= s[j];
-  }
-  const int64_t last = static_cast<int64_t>(nwin) << c;
-  const uint32_t mask = (1u << c) - 1;
-  for (int w = 0; w < nwin; ++w) {
-    const int bit = w * c;
-    const int word = bit >> 5, sh = bit & 31;
-    uint32_t v = word < 8 ? s[word] >> sh : 0;
-    if (sh && word + 1 < 8) v |= s[word + 1] << (32 - sh);
-    const uint32_t d = v & mask;
-    keys[w * n + i] = (inf || !any || d == 0)
-                          ? last
-                          : (static_cast<int64_t>(w) << c) | d;
+  for (int j = 0; j < N / 4; ++j) {
+    const uint4 u = v[j];
+    w[4 * j] = u.x;
+    w[4 * j + 1] = u.y;
+    w[4 * j + 2] = u.z;
+    w[4 * j + 3] = u.w;
   }
 }
 
-// chunk k: the sum of the points of sorted keys [starts[k], ends[k]), one
-// thread each, mixed additions; Jacobian, Montgomery
-template <class F>
-__global__ void __launch_bounds__(THREADS)
-    msm_bucket_kernel(const uint32_t* __restrict__ pts_mont,
-                      const int64_t* __restrict__ order,
-                      const int64_t* __restrict__ starts,
-                      const int64_t* __restrict__ ends, int64_t nchunks,
-                      int64_t n, uint32_t* __restrict__ partials) {
-  const int64_t k = thread_id();
-  if (k >= nchunks) return;
-  constexpr int W = words<F>();
-  Jac<F> acc;
-  jac_set_inf(acc);
-  const int64_t end = ends[k];
-  for (int64_t j = starts[k]; j < end; ++j) {
-    const int64_t i = order[j] % n;
-    Aff<F> q;
-    load(q.x, pts_mont + i * 2 * W);
-    load(q.y, pts_mont + i * 2 * W + W);
-    jac_add_mixed(acc, acc, q);
-  }
-  store_jac(partials + k * 3 * W, acc);
+template <int N>
+__device__ __forceinline__ void st16(uint32_t* p, const uint32_t (&w)[N]) {
+  uint4* v = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    v[j] = make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
 }
 
-// bucket k: the sum of its chunks chunk_off[k] .. chunk_off[k + 1]
 template <class F>
-__global__ void __launch_bounds__(THREADS)
-    msm_bucket_sum_kernel(const uint32_t* __restrict__ partials,
-                          const int64_t* __restrict__ chunk_off,
-                          int64_t nbuckets, uint32_t* __restrict__ buckets) {
-  const int64_t k = thread_id();
-  if (k >= nbuckets) return;
+__device__ __forceinline__ void store_xyzz(uint32_t* dst, const Xyzz<F>& p) {
   constexpr int W = words<F>();
-  Jac<F> acc, b;
-  jac_set_inf(acc);
-  const int64_t end = chunk_off[k + 1];
-  for (int64_t ch = chunk_off[k]; ch < end; ++ch) {
-    load_jac(b, partials + ch * 3 * W);
-    jac_add(acc, acc, b);
-  }
-  store_jac(buckets + k * 3 * W, acc);
+  uint32_t w[4 * W];
+  store(w, p.X);
+  store(w + W, p.Y);
+  store(w + 2 * W, p.ZZ);
+  store(w + 3 * W, p.ZZZ);
+  st16(dst, w);
 }
 
-constexpr int REDUCE_THREADS = 128;
+// The signed c-bit digits of a scalar below 2^254, low window first:
+// d_w = v - 2^c with a carry into the next window when v = raw_w + carry
+// is above 2^(c-1), else d_w = v, so that sum d_w 2^(c w) = s with every
+// |d_w| <= 2^(c-1) (c <= 31). The words move down the register array as
+// the windows pass them, so that no word is read by a computed index.
+struct SignedDigits {
+  uint32_t s[8];
+  int off = 0;
+  uint32_t carry = 0;
 
-// window w (one block of REDUCE_THREADS): sum_b b * B[w][b]. Thread s
-// takes buckets [lo, hi): running = sum B_b, acc = sum (b - lo + 1) B_b,
-// and contributes acc + (lo - 1) * running; a tree in shared memory sums
-// the parts
-template <class F>
-__global__ void __launch_bounds__(REDUCE_THREADS)
-    msm_reduce_kernel(const uint32_t* __restrict__ buckets, int c,
-                      uint32_t* __restrict__ windows) {
-  __shared__ Jac<F> part[REDUCE_THREADS];
-  constexpr int W = words<F>();
-  const int w = blockIdx.x, s = threadIdx.x;
-  const int nb = 1 << c;
-  const int len = (nb - 1 + REDUCE_THREADS - 1) / REDUCE_THREADS;
-  const int lo = 1 + s * len;
-  const int hi = min(lo + len, nb);
-  const uint32_t* base = buckets + static_cast<int64_t>(w) * nb * 3 * W;
-  Jac<F> running, acc, b;
-  jac_set_inf(running);
-  jac_set_inf(acc);
-  for (int k = hi - 1; k >= lo; --k) {
-    load_jac(b, base + static_cast<int64_t>(k) * 3 * W);
-    jac_add(running, running, b);
-    jac_add(acc, acc, running);
-  }
-  if (lo < hi && lo > 1) {
-    Jac<F> lift;
-    jac_set_inf(lift);
-    const uint32_t m = lo - 1;
-    for (int bit = 31 - __clz(m); bit >= 0; --bit) {
-      jac_double(lift, lift);
-      if ((m >> bit) & 1) jac_add(lift, lift, running);
+  __device__ __forceinline__ uint32_t next(int c, bool& neg) {
+    const uint32_t mask = (1u << c) - 1;
+    const uint32_t v = (__funnelshift_r(s[0], s[1], off) & mask) + carry;
+    off += c;
+    if (off >= 32) {
+#pragma unroll
+      for (int j = 0; j < 7; ++j) s[j] = s[j + 1];
+      s[7] = 0;
+      off -= 32;
     }
-    jac_add(acc, acc, lift);
+    neg = v > (mask >> 1) + 1;
+    carry = neg;
+    return neg ? mask + 1 - v : v;
   }
-  part[s] = acc;
+};
+
+// Per point: its Montgomery form (pts_mont), whether it is the point at
+// infinity (inf), and its nonzero digits counted into the histogram of
+// (window, |digit|) buckets, counts[w * 2^(c-1) + |d| - 1]. Lanes of a
+// warp that hit one bucket add once (__match_any_sync), so that a bucket
+// that most scalars share (a witness's 0/1 digits) takes one atomic a
+// warp.
+template <class F>
+__global__ void __launch_bounds__(THREADS)
+    msm_count_kernel(const uint32_t* __restrict__ pts,
+                     const uint32_t* __restrict__ scalars, int64_t n, int c,
+                     int nwin, uint32_t* __restrict__ pts_mont,
+                     uint8_t* __restrict__ inf, uint32_t* __restrict__ counts) {
+  constexpr int W = words<F>();
+  const int64_t i = thread_id();
+  bool live = false;
+  SignedDigits dg;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dg.s[j] = 0;
+  if (i < n) {
+    uint32_t w[2 * W];
+    ld16(w, pts + i * 2 * W);
+    uint32_t any = 0;
+#pragma unroll
+    for (int j = 0; j < 2 * W; ++j) any |= w[j];
+    live = any != 0;
+    Aff<F> q;
+    load(q.x, w);
+    load(q.y, w + W);
+    mont_in(q.x);
+    mont_in(q.y);
+    store(w, q.x);
+    store(w + W, q.y);
+    st16(pts_mont + i * 2 * W, w);
+    inf[i] = !live;
+    ld16(dg.s, scalars + i * 8);
+  }
+  const uint32_t nb = 1u << (c - 1);
+  const int lane = threadIdx.x & 31;
+  for (int win = 0; win < nwin; ++win) {
+    bool neg;
+    const uint32_t mag = dg.next(c, neg);
+    const uint32_t key = live && mag ? win * nb + mag - 1 : NO_KEY;
+    const uint32_t peers = __match_any_sync(0xffffffffu, key);
+    if (key != NO_KEY && lane == __ffs(peers) - 1)
+      atomicAdd(counts + key, __popc(peers));
+  }
+}
+
+// Window w = blockIdx.y's digit again: each nonzero one takes the next
+// place of its bucket (cursor, the buckets' offsets), and the point's
+// index goes there with the digit's sign in the top bit. The grid runs a
+// window at a time (blockIdx.x first), so that the places being written,
+// one window's share of `sorted`, stay in L2 while their sectors fill.
+__global__ void __launch_bounds__(THREADS)
+    msm_scatter_kernel(const uint32_t* __restrict__ scalars,
+                       const uint8_t* __restrict__ inf, int64_t n, int c,
+                       uint32_t* __restrict__ cursor,
+                       uint32_t* __restrict__ sorted) {
+  const int64_t i = thread_id();
+  const bool live = i < n && !inf[i];
+  SignedDigits dg;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dg.s[j] = 0;
+  if (live) ld16(dg.s, scalars + i * 8);
+  const uint32_t nb = 1u << (c - 1);
+  const int lane = threadIdx.x & 31;
+  const int win = blockIdx.y;
+  bool neg;
+  for (int w = 0; w < win; ++w) dg.next(c, neg);   // the carry into win
+  const uint32_t mag = dg.next(c, neg);
+  const uint32_t key = live && mag ? win * nb + mag - 1 : NO_KEY;
+  const uint32_t peers = __match_any_sync(0xffffffffu, key);
+  const int leader = __ffs(peers) - 1;
+  uint32_t base = 0;
+  if (key != NO_KEY && lane == leader)
+    base = atomicAdd(cursor + key, __popc(peers));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (key != NO_KEY)
+    sorted[base + __popc(peers & ((1u << lane) - 1))] =
+        static_cast<uint32_t>(i) | (neg ? NEG : 0u);
+}
+
+// exclusive scan of one value a thread over a block of SCAN_THREADS;
+// *total gets the block's sum
+__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* total) {
+  __shared__ uint32_t warp_sum[SCAN_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
   __syncthreads();
-  for (int half = REDUCE_THREADS / 2; half > 0; half >>= 1) {
-    if (s < half) jac_add(part[s], part[s], part[s + half]);
+  if (warp == 0) {
+    uint32_t s = warp_sum[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, s, d);
+      if (lane >= d) s += y;
+    }
+    warp_sum[lane] = s;
+  }
+  __syncthreads();
+  const uint32_t before = warp ? warp_sum[warp - 1] : 0;
+  *total = warp_sum[SCAN_THREADS / 32 - 1];
+  __syncthreads();
+  return before + x - v;
+}
+
+// the histogram's sum per tile of SCAN_TILE buckets
+__global__ void __launch_bounds__(SCAN_THREADS)
+    msm_scan_reduce_kernel(const uint32_t* __restrict__ counts, int64_t nb_all,
+                           uint32_t* __restrict__ tile_sums) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * SCAN_TILE +
+                        threadIdx.x * SCAN_ITEMS;
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j)
+    if (first + j < nb_all) v += counts[first + j];
+  uint32_t total;
+  block_scan(v, &total);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
+}
+
+// the tiles' sums scanned in place (one block); the grand total, the
+// entries in all, into offsets[nb_all]
+__global__ void __launch_bounds__(SCAN_THREADS)
+    msm_scan_tiles_kernel(uint32_t* __restrict__ tile_sums, int tiles,
+                          uint32_t* __restrict__ grand_total) {
+  uint32_t carry = 0;
+  for (int base = 0; base < tiles; base += SCAN_THREADS) {
+    const int k = base + threadIdx.x;
+    const uint32_t v = k < tiles ? tile_sums[k] : 0;
+    uint32_t total;
+    const uint32_t x = block_scan(v, &total);
+    if (k < tiles) tile_sums[k] = carry + x;
+    carry += total;
+  }
+  if (threadIdx.x == 0) *grand_total = carry;
+}
+
+// each bucket's first place: offsets and the scatter's cursor
+__global__ void __launch_bounds__(SCAN_THREADS)
+    msm_scan_apply_kernel(const uint32_t* __restrict__ counts, int64_t nb_all,
+                          const uint32_t* __restrict__ tile_off,
+                          uint32_t* __restrict__ offsets,
+                          uint32_t* __restrict__ cursor) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * SCAN_TILE +
+                        threadIdx.x * SCAN_ITEMS;
+  uint32_t v[SCAN_ITEMS], sum = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    v[j] = first + j < nb_all ? counts[first + j] : 0;
+    sum += v[j];
+  }
+  uint32_t total;
+  uint32_t at = tile_off[blockIdx.x] + block_scan(sum, &total);
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    if (first + j < nb_all) {
+      offsets[first + j] = at;
+      cursor[first + j] = at;
+    }
+    at += v[j];
+  }
+}
+
+// the bucket k holding sorted place j: offsets[k] <= j < offsets[k + 1],
+// searched in [lo, hi) with offsets[lo] <= j < offsets[hi]
+__device__ __forceinline__ int64_t bucket_of(const uint32_t* offsets,
+                                             int64_t lo, int64_t hi,
+                                             uint32_t j) {
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (offsets[mid] <= j)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the point of a sorted entry into this thread's slot of the ring
+template <int V>
+__device__ __forceinline__ void fetch_point(uint4 (*slot)[MSM_THREADS],
+                                            int tid,
+                                            const uint32_t* pts_mont,
+                                            uint32_t entry) {
+  const uint4* src = reinterpret_cast<const uint4*>(
+      pts_mont + static_cast<int64_t>(entry & ~NEG) * V * 4);
+#pragma unroll
+  for (int v = 0; v < V; ++v) cp_async16(&slot[v][tid], src + v);
+  cp_async_commit();
+}
+
+// Chunk t: the sorted places [t L, t L + L), one thread each, every chunk
+// equally long whatever the buckets, so that a bucket that holds a large
+// share of the points (a skewed scalar set) spreads over many threads. The
+// thread adds its chunk's points (negated for a negative digit) into an
+// XYZZ sum, one mixed addition each, the next point on its way into a
+// two-slot ring in shared memory (cp.async) while the last one is added;
+// where a bucket ends, its sum goes to bucket_sum (a bucket wholly in the
+// chunk) or to head[t] (a bucket begun in an earlier chunk); a bucket that
+// runs on past the chunk leaves its sum in tail[t], its key in
+// tail_key[t] (else -1), for msm_tree_kernel.
+template <class F>
+__global__ void __launch_bounds__(MSM_THREADS)
+    msm_bucket_kernel(const uint32_t* __restrict__ pts_mont,
+                      const uint32_t* __restrict__ sorted,
+                      const uint32_t* __restrict__ offsets, int64_t nb_all,
+                      int L, int64_t nchunks, uint32_t* __restrict__ bucket_sum,
+                      uint32_t* __restrict__ head, uint32_t* __restrict__ tail,
+                      int32_t* __restrict__ tail_key) {
+  constexpr int W = words<F>();
+  constexpr int V = 2 * W / 4;               // 16-byte pieces of a point
+  __shared__ uint4 ring[2][V][MSM_THREADS];  // [slot][piece][thread]
+  const int64_t t = thread_id();
+  if (t >= nchunks) return;
+  const uint32_t total = offsets[nb_all];
+  const uint32_t begin = static_cast<uint32_t>(t * L);
+  if (begin >= total) return;
+  const uint32_t end = min(begin + static_cast<uint32_t>(L), total);
+  int64_t k = bucket_of(offsets, 0, nb_all, begin);
+  uint32_t bucket_end = offsets[k + 1];
+  bool began_before = offsets[k] < begin;
+  const int tid = threadIdx.x;
+
+  uint32_t entry = sorted[begin];
+  fetch_point<V>(ring[0], tid, pts_mont, entry);
+  uint32_t next = begin + 1 < end ? sorted[begin + 1] : 0;
+  Xyzz<F> acc;
+  xyzz_set_inf(acc);
+  int32_t key = -1;
+#pragma unroll 1
+  for (uint32_t j = begin; j < end; ++j) {
+    const int slot = (j - begin) & 1;
+    const bool neg = entry & NEG;
+    if (j + 1 < end) {
+      fetch_point<V>(ring[slot ^ 1], tid, pts_mont, next);
+      entry = next;
+      next = j + 2 < end ? sorted[j + 2] : 0;
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    uint32_t w[2 * W];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const uint4 u = ring[slot][v][tid];
+      w[4 * v] = u.x;
+      w[4 * v + 1] = u.y;
+      w[4 * v + 2] = u.z;
+      w[4 * v + 3] = u.w;
+    }
+    Aff<F> q;
+    load(q.x, w);
+    load(q.y, w + W);
+    if (neg) fneg(q.y, q.y);
+    xyzz_add_mixed(acc, q);
+    if (j + 1 == bucket_end) {
+      store_xyzz((began_before ? head + t * 4 * W : bucket_sum + k * 4 * W),
+                 acc);
+      if (j + 1 < end) {
+        k = bucket_of(offsets, k + 1, nb_all, j + 1);
+        bucket_end = offsets[k + 1];
+        began_before = false;
+        xyzz_set_inf(acc);
+      }
+    } else if (j + 1 == end) {
+      store_xyzz(tail + t * 4 * W, acc);
+      key = static_cast<int32_t>(k);
+    }
+  }
+  tail_key[t] = key;
+}
+
+// One pass of the sums of the buckets that span chunks: a bucket's tails
+// lie in chunks t0 .. t1 - 1 (t1 the chunk of its last place, whose head
+// holds the rest). In pass s (step 8^s) chunk t0 + 8 step q adds the tails
+// of the seven chunks step, 2 step, .. 7 step after it; once a pass has
+// folded all of a bucket's m = t1 - t0 tails into tail[t0] (m <= 8 step),
+// chunk t0 adds head[t1] and writes the bucket's sum. A bucket of every
+// point spans at most n / L + 1 chunks, so `passes` = log8 of that always
+// ends every bucket; with random scalars the first pass does, and a pass
+// whose flag (*more, set by the pass before) is clear returns at once.
+template <class F>
+__global__ void __launch_bounds__(MSM_THREADS)
+    msm_tree_kernel(const uint32_t* __restrict__ offsets, int64_t nb_all,
+                    int L, int64_t nchunks, int64_t step,
+                    uint32_t* __restrict__ tail,
+                    const int32_t* __restrict__ tail_key,
+                    const uint32_t* __restrict__ head,
+                    uint32_t* __restrict__ bucket_sum,
+                    int32_t* __restrict__ more) {
+  constexpr int W = words<F>();
+  const int64_t t = thread_id();
+  if (!*more || t >= nchunks || t * L >= offsets[nb_all]) return;
+  const int32_t k = tail_key[t];
+  if (k < 0) return;
+  const int64_t t0 = offsets[k] / L;
+  const int64_t t1 = (offsets[k + 1] - 1) / L;
+  const int64_t jj = t - t0, m = t1 - t0;
+  if (jj % (8 * step) || (step > 1 && m <= step)) return;
+  auto* acc = reinterpret_cast<Xyzz<F>*>(tail + t * 4 * W);
+#pragma unroll 1
+  for (int i = 1; i < 8 && jj + i * step < m; ++i)
+    xyzz_acc(acc, reinterpret_cast<const Xyzz<F>*>(
+                      tail + (t + i * step) * 4 * W));
+  if (jj == 0 && m <= 8 * step) {
+    xyzz_acc(acc, reinterpret_cast<const Xyzz<F>*>(head + t1 * 4 * W));
+    *reinterpret_cast<Xyzz<F>*>(bucket_sum + static_cast<int64_t>(k) * 4 * W) =
+        *acc;
+  } else if (jj == 0) {
+    more[1] = 1;   // the next pass has work
+  }
+}
+
+constexpr int REDUCE_MAX = 64;  // threads of a reduce block, at most
+
+// Window w = blockIdx.y, its buckets |d| = 1 .. 2^(c-1) cut into runs of
+// Ls, one thread each over the whole grid. Thread i of block j holds run
+// s = j T + i (T = blockDim.x, lo_s = s Ls + 1) and forms, from the top
+// bucket down, its running sum R_s = sum B_d and A_s = sum (d - lo_s + 1)
+// B_d, so that the window's sum_d d B_d is
+//   sum_s A_s + Ls sum_s s R_s
+//   = sum_j A_j + Ls sum_j (W_j + T j S_j),
+// with A_j = sum_i A_s, S_j = sum_i R_s and W_j = sum_i i R_s per block.
+// The block writes those three points to partials[(w bw + j) 3 + 0..2]:
+// A_j and S_j by trees in shared memory, W_j as the sum of the suffix
+// sums of R over i >= 1 (a Hillis-Steele scan). Every addition goes
+// through xyzz_acc on shared or device memory; an empty bucket
+// (offsets[k] == offsets[k + 1]) is never read.
+template <class F>
+__global__ void __launch_bounds__(REDUCE_MAX)
+    msm_reduce_kernel(const uint32_t* __restrict__ offsets,
+                      const uint32_t* __restrict__ bucket_sum, int c, int Ls,
+                      uint32_t* __restrict__ partials) {
+  constexpr int W = words<F>();
+  __shared__ Xyzz<F> sa[REDUCE_MAX], sr[REDUCE_MAX];
+  const int s = threadIdx.x, T = blockDim.x;
+  const int64_t nb = int64_t{1} << (c - 1);
+  const int64_t base = blockIdx.y * nb;
+  const int64_t lo = (static_cast<int64_t>(blockIdx.x) * T + s) * Ls + 1;
+  const auto* buckets = reinterpret_cast<const Xyzz<F>*>(bucket_sum);
+  xyzz_set_inf(sa[s]);
+  xyzz_set_inf(sr[s]);
+#pragma unroll 1
+  for (int64_t k = base + lo + Ls - 2; k >= base + lo - 1; --k) {
+    if (offsets[k + 1] > offsets[k]) xyzz_acc(&sr[s], buckets + k);
+    xyzz_acc(&sa[s], &sr[s]);
+  }
+  __syncthreads();
+  auto* out = reinterpret_cast<Xyzz<F>*>(partials) +
+              (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 3;
+  for (int half = T / 2; half > 0; half >>= 1) {
+    if (s < half) xyzz_acc(&sa[s], &sa[s + half]);
     __syncthreads();
   }
-  if (s == 0) store_jac(windows + static_cast<int64_t>(w) * 3 * W, part[0]);
+  if (s == 0) out[0] = sa[0];
+  __syncthreads();
+  // suffix sums of R, ping-ponged between sr and sa
+  Xyzz<F>* src = sr;
+  Xyzz<F>* dst = sa;
+  for (int d = 1; d < T; d <<= 1) {
+    dst[s] = src[s];
+    if (s + d < T) xyzz_acc(&dst[s], &src[s + d]);
+    __syncthreads();
+    Xyzz<F>* x = src;
+    src = dst;
+    dst = x;
+  }
+  if (s == 0) {
+    out[2] = src[0];
+    xyzz_set_inf(src[0]);
+  }
+  __syncthreads();
+  for (int half = T / 2; half > 0; half >>= 1) {
+    if (s < half) xyzz_acc(&src[s], &src[s + half]);
+    __syncthreads();
+  }
+  if (s == 0) out[1] = src[0];
 }
 
-// sum_w 2^(c w) * window_w, high to low, then affine, ordinary form
+// window w = blockIdx.x over its bw = blockDim.x blocks' partials: X =
+// sum_j A_j, Y = sum_j W_j, Z = sum_j j S_j (suffix sums of S, then their
+// sum over j >= 1), each by a tree in shared memory; then the window's
+// sum_d d B_d = X + 2^a Y + 2^b Z (a = log2 Ls, b = log2 Ls T) by b
+// doublings, in Jacobian coordinates into windows[w]
 template <class F>
-__global__ void msm_combine_kernel(const uint32_t* __restrict__ windows,
-                                   int c, int nwin, uint32_t* __restrict__ out) {
+__global__ void __launch_bounds__(REDUCE_MAX)
+    msm_window_kernel(const uint32_t* __restrict__ partials, int a, int b,
+                      uint32_t* __restrict__ windows) {
   constexpr int W = words<F>();
-  Jac<F> acc, win;
-  load_jac(acc, windows + static_cast<int64_t>(nwin - 1) * 3 * W);
-  for (int w = nwin - 2; w >= 0; --w) {
-    for (int k = 0; k < c; ++k) jac_double(acc, acc);
-    load_jac(win, windows + static_cast<int64_t>(w) * 3 * W);
-    jac_add(acc, acc, win);
+  __shared__ Xyzz<F> sa[REDUCE_MAX], sb[REDUCE_MAX];
+  __shared__ Xyzz<F> xy[2];
+  const int s = threadIdx.x, T = blockDim.x;
+  const auto* in = reinterpret_cast<const Xyzz<F>*>(partials) +
+                   static_cast<int64_t>(blockIdx.x) * T * 3;
+  // X in sa and Y in sb side by side: the first half of the block's
+  // lanes (rounded up to a warp) sums X, the second Y
+  sa[s] = in[s * 3];
+  sb[s] = in[s * 3 + 1];
+  __syncthreads();
+  const int hw = T > 32 ? T / 2 : 32;  // Y's lanes start here
+  for (int half = T / 2; half > 0; half >>= 1) {
+    if (s < half) xyzz_acc(&sa[s], &sa[s + half]);
+    if (s >= hw && s - hw < half) xyzz_acc(&sb[s - hw], &sb[s - hw + half]);
+    if (T <= 32 && s < half) xyzz_acc(&sb[s], &sb[s + half]);
+    __syncthreads();
   }
-  store_affine(out, acc);
+  if (s == 0) {
+    xy[0] = sa[0];
+    xy[1] = sb[0];
+  }
+  __syncthreads();
+  sa[s] = in[s * 3 + 2];
+  __syncthreads();
+  Xyzz<F>* src = sa;
+  Xyzz<F>* dst = sb;
+  for (int d = 1; d < T; d <<= 1) {
+    dst[s] = src[s];
+    if (s + d < T) xyzz_acc(&dst[s], &src[s + d]);
+    __syncthreads();
+    Xyzz<F>* x = src;
+    src = dst;
+    dst = x;
+  }
+  if (s == 0) xyzz_set_inf(src[0]);
+  __syncthreads();
+  for (int half = T / 2; half > 0; half >>= 1) {
+    if (s < half) xyzz_acc(&src[s], &src[s + half]);
+    __syncthreads();
+  }
+  if (s == 0) {
+    Xyzz<F>* v = &src[0];   // Z
+    for (int i = a; i < b; ++i) xyzz_dbl(v);
+    xyzz_acc(v, &xy[1]);
+    for (int i = 0; i < a; ++i) xyzz_dbl(v);
+    xyzz_acc(v, &xy[0]);
+    Jac<F> r;
+    xyzz_to_jac(r, *v);
+    uint32_t* out = windows + static_cast<int64_t>(blockIdx.x) * 3 * W;
+    store(out, r.X);
+    store(out + W, r.Y);
+    store(out + 2 * W, r.Z);
+  }
+}
+
+// sum_w 2^(c w) window_w, high to low in Jacobian coordinates (a
+// doubling is 7 products there, 9 in XYZZ): one warp, every lane holding
+// the sum, its doublings' independent products spread over the lanes
+// (jac_double_lat); a serial chain of about 254 doublings (skipped while
+// the sum is still infinity), then affine, ordinary form, from lane 0
+template <class F>
+__global__ void __launch_bounds__(32)
+    msm_horner_kernel(const uint32_t* __restrict__ windows, int c, int nwin,
+                      uint32_t* __restrict__ out) {
+  constexpr int W = words<F>();
+  Jac<F> acc, q;
+  jac_set_inf(acc);
+#pragma unroll 1
+  for (int w = nwin - 1; w >= 0; --w) {
+#pragma unroll 1
+    for (int e = 0; e < c && !fis_zero(acc.Z); ++e) jac_double_lat(acc);
+    const uint32_t* src = windows + static_cast<int64_t>(w) * 3 * W;
+    load(q.X, src);
+    load(q.Y, src + W);
+    load(q.Z, src + 2 * W);
+    jac_add(acc, acc, q);
+  }
+  if (threadIdx.x == 0) store_affine(out, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -571,59 +987,106 @@ using G = G1F;
 
 extern "C" {
 
-// FB_BITS, FB_WINDOWS, FB_RUN, NTT_TILE_LOG and the library's group (1 or
-// 2): what the wrapper builds tables for and checks
+// FB_BITS, FB_WINDOWS, FB_RUN, NTT_TILE_LOG, the library's group (1 or
+// 2) and REDUCE_MAX: what the wrapper builds tables and plans for and
+// checks
 int bn254_params(int* out) {
   out[0] = FB_BITS;
   out[1] = FB_WINDOWS;
   out[2] = FB_RUN;
   out[3] = NTT_TILE_LOG;
   out[4] = BN254_G2 ? 2 : 1;
+  out[5] = REDUCE_MAX;
   return 0;
 }
 
-int bn254_msm_prep(const void* pts, const void* scalars, long long n, int c,
-                   int nwin, void* keys, void* pts_mont, void* stream) {
+// The MSM's first half: the points to Montgomery form and the histogram
+// of their signed digits (msm_count_kernel), its exclusive scan into the
+// buckets' offsets (offsets[nwin << (c - 1)] is the number of entries),
+// then the points' indices scattered into bucket order (sorted). Every
+// buffer is the wrapper's; `counts` is cleared here.
+int bn254_msm_sort(const void* pts, const void* scalars, long long n, int c,
+                   int nwin, void* pts_mont, void* inf, void* counts,
+                   void* tile_sums, void* offsets, void* cursor, void* sorted,
+                   void* stream) {
   if (n <= 0) return 0;
-  msm_prep_kernel<G><<<blocks_for(n), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t nb_all = static_cast<int64_t>(nwin) << (c - 1);
+  const int tiles = static_cast<int>((nb_all + SCAN_TILE - 1) / SCAN_TILE);
+  auto cnt = static_cast<uint32_t*>(counts);
+  auto ts = static_cast<uint32_t*>(tile_sums);
+  auto off = static_cast<uint32_t*>(offsets);
+  auto cur = static_cast<uint32_t*>(cursor);
+  auto fl = static_cast<uint8_t*>(inf);
+  cudaError_t e = cudaMemsetAsync(cnt, 0, nb_all * 4, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  msm_count_kernel<G><<<blocks_for(n), THREADS, 0, st>>>(
       static_cast<const uint32_t*>(pts), static_cast<const uint32_t*>(scalars),
-      n, c, nwin, static_cast<int64_t*>(keys),
-      static_cast<uint32_t*>(pts_mont));
+      n, c, nwin, static_cast<uint32_t*>(pts_mont), fl, cnt);
+  int err = status();
+  if (err) return err;
+  msm_scan_reduce_kernel<<<tiles, SCAN_THREADS, 0, st>>>(cnt, nb_all, ts);
+  if ((err = status())) return err;
+  msm_scan_tiles_kernel<<<1, SCAN_THREADS, 0, st>>>(ts, tiles, off + nb_all);
+  if ((err = status())) return err;
+  msm_scan_apply_kernel<<<tiles, SCAN_THREADS, 0, st>>>(cnt, nb_all, ts, off,
+                                                        cur);
+  if ((err = status())) return err;
+  msm_scatter_kernel<<<dim3(blocks_for(n), nwin), THREADS, 0, st>>>(
+      static_cast<const uint32_t*>(scalars), fl, n, c, cur,
+      static_cast<uint32_t*>(sorted));
   return status();
 }
 
-// the chunks' sums, then each bucket's sum of its chunks
-int bn254_msm_bucket(const void* pts_mont, const void* order,
-                     const void* starts, const void* ends, long long nchunks,
-                     long long n, void* partials, const void* chunk_off,
-                     long long nbuckets, void* buckets, void* stream) {
+// The second half: the chunks' sums (msm_bucket_kernel over `nchunks`
+// chunks of L places), `passes` tree passes for the buckets that span
+// chunks, the reduction of each window's buckets (bw blocks of tr threads
+// a window, runs of Ls buckets a thread; tr, Ls and bw powers of two,
+// tr and bw at most REDUCE_MAX), the windows' sums and the Horner pass
+// into `out` (the affine sum, ordinary form, zeros for infinity).
+int bn254_msm_sum(const void* pts_mont, const void* sorted,
+                  const void* offsets, int c, int nwin, int L,
+                  long long nchunks, int passes, int Ls, int tr, int bw,
+                  void* bucket_sum, void* head, void* tail, void* tail_key,
+                  void* more, void* partials, void* windows, void* out,
+                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto b = static_cast<uint32_t*>(partials);
+  const int64_t nb_all = static_cast<int64_t>(nwin) << (c - 1);
+  auto off = static_cast<const uint32_t*>(offsets);
+  auto bs = static_cast<uint32_t*>(bucket_sum);
+  auto hd = static_cast<uint32_t*>(head);
+  auto tl = static_cast<uint32_t*>(tail);
+  auto tk = static_cast<int32_t*>(tail_key);
+  auto part = static_cast<uint32_t*>(partials);
+  auto win = static_cast<uint32_t*>(windows);
   if (nchunks > 0) {
-    msm_bucket_kernel<G><<<blocks_for(nchunks), THREADS, 0, st>>>(
+    const int grid = blocks_for(nchunks, MSM_THREADS);
+    msm_bucket_kernel<G><<<grid, MSM_THREADS, 0, st>>>(
         static_cast<const uint32_t*>(pts_mont),
-        static_cast<const int64_t*>(order),
-        static_cast<const int64_t*>(starts),
-        static_cast<const int64_t*>(ends), nchunks, n, b);
+        static_cast<const uint32_t*>(sorted), off, nb_all, L, nchunks, bs, hd,
+        tl, tk);
     int err = status();
     if (err) return err;
+    // more[s]: pass s has work (pass 0 always)
+    auto mo = static_cast<int32_t*>(more);
+    cudaError_t e = cudaMemsetAsync(mo, 0, (passes + 1) * 4, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaMemsetAsync(mo, 0xff, 4, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int64_t step = 1;
+    for (int s = 0; s < passes; ++s, step *= 8) {
+      msm_tree_kernel<G><<<grid, MSM_THREADS, 0, st>>>(
+          off, nb_all, L, nchunks, step, tl, tk, hd, bs, mo + s);
+      if ((err = status())) return err;
+    }
   }
-  msm_bucket_sum_kernel<G><<<blocks_for(nbuckets), THREADS, 0, st>>>(
-      b, static_cast<const int64_t*>(chunk_off), nbuckets,
-      static_cast<uint32_t*>(buckets));
-  return status();
-}
-
-int bn254_msm_reduce(const void* buckets, int c, int nwin, void* windows,
-                     void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto w = static_cast<uint32_t*>(windows);
-  msm_reduce_kernel<G><<<nwin, REDUCE_THREADS, 0, st>>>(
-      static_cast<const uint32_t*>(buckets), c, w);
-  int e = status();
-  if (e) return e;
-  msm_combine_kernel<G><<<1, 1, 0, st>>>(w, c, nwin,
+  msm_reduce_kernel<G><<<dim3(bw, nwin), tr, 0, st>>>(off, bs, c, Ls, part);
+  int err = status();
+  if (err) return err;
+  msm_window_kernel<G><<<nwin, bw, 0, st>>>(part, __builtin_ctz(Ls),
+                                            __builtin_ctz(Ls * tr), win);
+  if ((err = status())) return err;
+  msm_horner_kernel<G><<<1, 32, 0, st>>>(win, c, nwin,
                                         static_cast<uint32_t*>(out));
   return status();
 }

@@ -33,9 +33,9 @@ _I = ctypes.c_int
 # every library's functions, then the G1 library's Fr functions
 _FUNCTIONS = {
     "bn254_params": [_P],
-    "bn254_msm_prep": [_P, _P, _LL, _I, _I, _P, _P, _P],
-    "bn254_msm_bucket": [_P, _P, _P, _P, _LL, _LL, _P, _P, _LL, _P, _P],
-    "bn254_msm_reduce": [_P, _I, _I, _P, _P, _P],
+    "bn254_msm_sort": [_P, _P, _LL, _I, _I] + [_P] * 8,
+    "bn254_msm_sum": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I]
+                     + [_P] * 9,
     "bn254_fixed_base": [_P, _P, _LL, _P, _P],
 }
 _FR_FUNCTIONS = {
@@ -57,10 +57,10 @@ def _library(g2: bool):
             f = getattr(lib, fn)
             f.argtypes = args
             f.restype = ctypes.c_int
-        params = (ctypes.c_int * 5)()
+        params = (ctypes.c_int * 6)()
         lib.bn254_params(params)
-        if (params[0], params[1], params[4]) != (bd.FB_BITS, bd.FB_WINDOWS,
-                                                 2 if g2 else 1):
+        if (params[0], params[1], params[4], params[5]) != (
+                bd.FB_BITS, bd.FB_WINDOWS, 2 if g2 else 1, REDUCE_MAX):
             raise RuntimeError(f"{LIBRARIES[g2]}'s parameters "
                                f"{tuple(params)} do not match bn254_device's")
         _libs[g2] = lib
@@ -103,69 +103,130 @@ def _point_tail(g2: bool) -> tuple:
     return (2, 2, 8) if g2 else (2, 8)
 
 
-def _chunks(offsets: torch.Tensor):
-    """Cut each bucket's segment [offsets[b], offsets[b + 1]) of the sorted
-    keys into chunks of at most L points, L = max(256, longest / 1024):
-    the chunks' starts and ends, and each bucket's first chunk (nb + 1)."""
-    lens = offsets[1:] - offsets[:-1]
-    most = int(lens.max()) if lens.numel() else 0
-    size = max(256, -(-most // 1024))
-    per = (lens + size - 1) // size
-    chunk_off = torch.zeros(lens.numel() + 1, dtype=torch.int64,
-                            device=offsets.device)
-    torch.cumsum(per, 0, out=chunk_off[1:])
-    total = int(chunk_off[-1])
-    bucket = torch.repeat_interleave(
-        torch.arange(lens.numel(), device=offsets.device), per,
-        output_size=total)
-    starts = offsets[bucket] + (torch.arange(total, device=offsets.device)
-                                - chunk_off[bucket]) * size
-    ends = torch.minimum(starts + size, offsets[bucket + 1])
-    return starts, ends, chunk_off
+# csrc/bn254.cu: the reduce and window kernels' largest block, the scan's
+# tile; the reduction aims at about this many threads over the card (512
+# on each of 132 SMs)
+REDUCE_MAX = 64
+SCAN_TILE = 4096
+REDUCE_THREADS = 1 << 16
 
 
-def msm(points: torch.Tensor, scalars: torch.Tensor, g2: bool) -> torch.Tensor:
-    """sum s_i * P_i over (N, 2, [2,] 8) affine points and (N, 8) scalars
-    (below r): the prep, bucket, reduce and combine kernels, the keys
-    ordered by torch.sort and the segments cut into chunks between them
-    (plumbing). Returns the (2, [2,] 8) affine sum, zeros for infinity."""
+def msm_plan(n: int, g2: bool) -> dict:
+    """The MSM's shape for n points, fixed by n alone (no sync reads the
+    data): the window c (`bd.msm_window`), its windows and buckets; the
+    chunk length L (every chunk of the bucket-ordered entries equally
+    long, short enough that nwin * n / L chunks fill the card, 4 to 64)
+    and the chunks' count; the tree passes that join a bucket's chunks (a
+    bucket of every point spans n / L + 1 chunks, 8 joined a pass); the
+    reduction's runs of `ls` buckets a thread, `tr` threads a block and
+    `bw` blocks a window (each at most REDUCE_MAX); the scan's tiles."""
+    c = bd.msm_window(n, g2)
+    nwin = bd.msm_windows(c)
+    nb = 1 << (c - 1)
+    nb_all = nwin * nb
+    L = 4
+    while L < 64 and 2 * L * (1 << 17) <= nwin * n:
+        L *= 2
+    passes = 1
+    while 8 ** passes < -(-n // L) + 1:
+        passes += 1
+    ls = 1
+    while nb_all // ls > REDUCE_THREADS and ls < nb:
+        ls *= 2
+    while nb // (ls * min(REDUCE_MAX, nb // ls)) > REDUCE_MAX:
+        ls *= 2
+    tr = min(REDUCE_MAX, nb // ls)
+    return {"c": c, "nwin": nwin, "nb": nb, "nb_all": nb_all, "L": L,
+            "nchunks": -(-nwin * n // L), "passes": passes, "ls": ls,
+            "tr": tr, "bw": nb // (ls * tr),
+            "tiles": -(-nb_all // SCAN_TILE)}
+
+
+def _msm_check(points: torch.Tensor, scalars: torch.Tensor, g2: bool) -> int:
     _check(points, "points", _point_tail(g2))
     _check(scalars, "scalars", (8,))
     n = points.shape[0]
     if scalars.shape[0] != n or scalars.device != points.device:
         raise ValueError("bn254_cuda: points and scalars must be on one card "
                          f"with one length, not {n} and {scalars.shape[0]}")
+    if points.data_ptr() % 16 or scalars.data_ptr() % 16:
+        raise ValueError("bn254_cuda: points and scalars must be 16-byte "
+                         "aligned")
+    if n >= 1 << 31 or bd.msm_windows(bd.msm_window(n, g2)) * n >= 1 << 32:
+        raise ValueError(f"bn254_cuda: {n} points are more than the MSM's "
+                         "32-bit entry indices hold")
+    return n
+
+
+def _msm_sort(points: torch.Tensor, scalars: torch.Tensor, g2: bool,
+              plan: dict) -> dict:
+    """Launch the MSM's first half: the buffers it fills."""
     dev = points.device
-    out = torch.zeros(points.shape[1:], dtype=torch.int32, device=dev)
+    n = points.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    buf = {"pts_mont": torch.empty_like(points),
+           "inf": torch.empty(n, dtype=torch.uint8, device=dev),
+           "counts": torch.empty(plan["nb_all"], **i32),
+           "tile_sums": torch.empty(plan["tiles"], **i32),
+           "offsets": torch.empty(plan["nb_all"] + 1, **i32),
+           "cursor": torch.empty(plan["nb_all"], **i32),
+           "sorted": torch.empty(plan["nwin"] * n, **i32)}
+    _call("bn254_msm_sort", dev, points.data_ptr(), scalars.data_ptr(), n,
+          plan["c"], plan["nwin"],
+          *(buf[k].data_ptr() for k in ("pts_mont", "inf", "counts",
+                                        "tile_sums", "offsets", "cursor",
+                                        "sorted")), g2=g2)
+    return buf
+
+
+def msm(points: torch.Tensor, scalars: torch.Tensor, g2: bool) -> torch.Tensor:
+    """sum s_i * P_i over (N, 2, [2,] 8) affine points and (N, 8) scalars
+    below r: the signed-digit bucket sort (`bn254_msm_sort`), then the
+    chunk sums, the tree passes, the reduction and the Horner pass
+    (`bn254_msm_sum`), every launch on the current stream with no sync
+    between them, every buffer shaped by `msm_plan(N, g2)`. Returns the
+    (2, [2,] 8) affine sum, zeros for infinity."""
+    n = _msm_check(points, scalars, g2)
+    dev = points.device
     if n == 0:
-        return out
-    c = bd.msm_window(n)
-    nwin = bd.msm_windows(c)
-    nbuckets = nwin << c
-    keys = torch.empty(nwin * n, dtype=torch.int64, device=dev)
-    pts_mont = torch.empty_like(points)
-    _call("bn254_msm_prep", dev, points.data_ptr(), scalars.data_ptr(), n, c,
-          nwin, keys.data_ptr(), pts_mont.data_ptr(), g2=g2)
-    keys, order = torch.sort(keys)
-    offsets = torch.searchsorted(
-        keys, torch.arange(nbuckets + 1, dtype=torch.int64, device=dev))
-    del keys
-    starts, ends, chunk_off = _chunks(offsets)
-    words = points[0, 0].numel()
-    partials = torch.empty((starts.numel(), 3 * words), dtype=torch.int32,
-                           device=dev)
-    buckets = torch.empty((nbuckets, 3 * words), dtype=torch.int32,
-                          device=dev)
-    _call("bn254_msm_bucket", dev, pts_mont.data_ptr(), order.data_ptr(),
-          starts.data_ptr(), ends.data_ptr(), starts.numel(), n,
-          partials.data_ptr(), chunk_off.data_ptr(), nbuckets,
-          buckets.data_ptr(), g2=g2)
-    del partials
-    windows = torch.empty((nwin, 3 * words), dtype=torch.int32, device=dev)
-    _call("bn254_msm_reduce", dev, buckets.data_ptr(), c, nwin,
-          windows.data_ptr(), out.data_ptr(), g2=g2)
+        return torch.zeros(points.shape[1:], dtype=torch.int32, device=dev)
+    out = torch.empty(points.shape[1:], dtype=torch.int32, device=dev)
+    plan = msm_plan(n, g2)
+    buf = _msm_sort(points, scalars, g2, plan)
+    del buf["counts"], buf["cursor"], buf["tile_sums"], buf["inf"]
+    xyzz = 4 * points[0, 0].numel()
+    i32 = dict(dtype=torch.int32, device=dev)
+    bucket_sum = torch.empty((plan["nb_all"], xyzz), **i32)
+    head = torch.empty((plan["nchunks"], xyzz), **i32)
+    tail = torch.empty((plan["nchunks"], xyzz), **i32)
+    tail_key = torch.empty(plan["nchunks"], **i32)
+    more = torch.empty(plan["passes"] + 1, **i32)
+    # three XYZZ points a reduce block, one Jacobian point a window
+    partials = torch.empty((plan["nwin"] * plan["bw"] * 3, xyzz), **i32)
+    windows = torch.empty((plan["nwin"], xyzz // 4 * 3), **i32)
+    _call("bn254_msm_sum", dev, buf["pts_mont"].data_ptr(),
+          buf["sorted"].data_ptr(), buf["offsets"].data_ptr(), plan["c"],
+          plan["nwin"], plan["L"], plan["nchunks"], plan["passes"],
+          plan["ls"], plan["tr"], plan["bw"], bucket_sum.data_ptr(),
+          head.data_ptr(), tail.data_ptr(), tail_key.data_ptr(),
+          more.data_ptr(), partials.data_ptr(), windows.data_ptr(),
+          out.data_ptr(), g2=g2)
     launches["g2_msm" if g2 else "g1_msm"] += 1
     return out
+
+
+def msm_buckets(points: torch.Tensor, scalars: torch.Tensor, g2: bool):
+    """The MSM's first half alone, for checking its digits: (plan, sorted,
+    offsets), where the entries sorted[offsets[k]:offsets[k + 1]] are the
+    points of bucket k = w * 2^(c-1) + |d| - 1 (window w, digit d), each
+    entry a point's index with the digit's sign in bit 31. Not counted in
+    `launches`: it sums nothing, and only checks call it."""
+    n = _msm_check(points, scalars, g2)
+    if n == 0:
+        raise ValueError("bn254_cuda: msm_buckets needs a point")
+    plan = msm_plan(n, g2)
+    buf = _msm_sort(points, scalars, g2, plan)
+    return plan, buf["sorted"], buf["offsets"]
 
 
 def _table(g2: bool, device) -> torch.Tensor:

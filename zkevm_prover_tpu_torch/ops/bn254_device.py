@@ -51,13 +51,32 @@ FB_WINDOWS = 256 // FB_BITS
 FB_ENTRIES = (1 << FB_BITS) - 1
 
 
-def msm_window(n: int) -> int:
-    """Pippenger window bits for n points, as g1_msm_device :416."""
-    return max(2, min(13, n.bit_length() - 1))
+# Fp products of one group operation in the MSM kernels' XYZZ coordinates
+# (csrc/bn254.cuh): a mixed addition 8 products and 2 squarings, a full one
+# 12 and 2; over Fp2 a product is 3 Fp products and a squaring 2
+MSM_MADD = {False: 8 + 2, True: 8 * 3 + 2 * 2}
+MSM_ADD = {False: 12 + 2, True: 12 * 3 + 2 * 2}
+MSM_MAX_WINDOW = 22
 
 
 def msm_windows(c: int) -> int:
-    return -(-254 // c)
+    """Signed c-bit windows of a scalar below 2^254: one more than the
+    windows that 254 bits fill, for the last window's carry."""
+    return 254 // c + 1
+
+
+def msm_cost(n: int, c: int, g2: bool = False) -> int:
+    """Fp products of a signed-digit Pippenger over n points at window c:
+    a mixed addition per point and window, and the running sums' two full
+    additions per bucket, 2^(c-1) buckets a window."""
+    return msm_windows(c) * (n * MSM_MADD[g2] + (1 << c) * MSM_ADD[g2])
+
+
+def msm_window(n: int, g2: bool = False) -> int:
+    """The window bits of the MSM kernels for n points: the least
+    `msm_cost` (the narrower window where two tie)."""
+    return min(range(2, MSM_MAX_WINDOW + 1),
+               key=lambda c: (msm_cost(n, c, g2), c))
 
 
 # ---------------------------------------------------------------------------
@@ -554,6 +573,24 @@ def _scalar_digits(scalars: torch.Tensor, bits: int, n_windows: int
     return (lo | hi) & ((1 << bits) - 1)
 
 
+def signed_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """(N, msm_windows(c)) int64 signed digits of (N, 8) int32 scalars
+    below 2^254, low window first: d_w = v - 2^c with a carry into the next
+    window when v = raw_w + carry is above 2^(c-1), else d_w = v; so
+    sum_w d_w 2^(c w) = s and |d_w| <= 2^(c-1). The recoding of
+    csrc/bn254.cu `SignedDigits`."""
+    nwin = msm_windows(c)
+    raw = _scalar_digits(scalars, c, nwin)
+    out = torch.empty_like(raw)
+    carry = torch.zeros_like(raw[:, 0])
+    for w in range(nwin):
+        v = raw[:, w] + carry
+        neg = v > 1 << (c - 1)
+        out[:, w] = torch.where(neg, v - (1 << c), v)
+        carry = neg.to(torch.int64)
+    return out
+
+
 def _segment_sums(F, pts, seg: torch.Tensor):
     """Sum the points of each run of equal `seg` (sorted), pairing
     neighbours within a run until one point per run is left."""
@@ -586,10 +623,11 @@ def _segment_sums(F, pts, seg: torch.Tensor):
 @_plain
 def msm_plain(points: torch.Tensor, scalars: torch.Tensor,
               g2: bool) -> torch.Tensor:
-    """sum s_i * P_i, the plain twin of the MSM kernel pair: (N, 2, [2,] 8)
-    affine points, (N, 8) scalars below 2^256 reduced mod r by the caller;
-    the affine sum (2, [2,] 8). Pippenger as the kernels: digits, a sort by
-    (window, digit), segment sums, a suffix scan and sum per window, the
+    """sum s_i * P_i, the plain twin of the MSM kernels: (N, 2, [2,] 8)
+    affine points, (N, 8) scalars below r (reduced by the caller); the
+    affine sum (2, [2,] 8). Pippenger as the kernels: signed digits
+    (`signed_digits`), a point negated for a negative digit, a sort by
+    (window, |digit|), segment sums, a suffix scan and sum per window, the
     windows joined by doublings; the window is at most 5 bits, since each
     step here is one tensor-wide addition whose size grows with 2^c."""
     F = _Fp2 if g2 else _Fp
@@ -597,21 +635,25 @@ def msm_plain(points: torch.Tensor, scalars: torch.Tensor,
     n = points.shape[0]
     if n == 0:
         return torch.zeros(points.shape[1:], dtype=torch.int32, device=dev)
-    c = min(msm_window(n), 5)
+    c = min(msm_window(n, g2), 5)
     nwin = msm_windows(c)
-    nb = 1 << c
-    digits = _scalar_digits(scalars, c, nwin)                  # (N, nwin)
+    nb = 1 << (c - 1)
+    digits = signed_digits(scalars, c)                         # (N, nwin)
+    mag = digits.abs()
     inf = (points.reshape(n, -1) == 0).all(-1)
-    keys = (torch.arange(nwin, device=dev) << c)[None, :] | digits
-    valid = (digits != 0) & ~inf[:, None]
+    keys = (torch.arange(nwin, device=dev) * nb)[None, :] + mag - 1
+    valid = (mag != 0) & ~inf[:, None]
     keys, order = torch.sort(keys[valid], stable=True)
     idx = torch.arange(n, device=dev)[:, None].expand(n, nwin)[valid][order]
-    proj = _affine_in(F, points)
-    sums, seg = _segment_sums(F, _pt_index(proj, idx), keys)
+    neg = (digits < 0)[valid][order]
+    X, Y, Z = _pt_index(_affine_in(F, points), idx)
+    Y = _pt_select(neg, (F.sub(F.zero(neg.shape, dev), Y),), (Y,))[0]
+    sums, seg = _segment_sums(F, (X, Y, Z), keys)
     buckets = _pt_inf(F, (nwin * nb,), dev)
     buckets = tuple(b.index_copy(0, seg, s) for b, s in zip(buckets, sums))
     buckets = tuple(b.reshape((nwin, nb) + b.shape[1:]) for b in buckets)
-    # suffix sums S_b = sum_{b' >= b} B_b' (Hillis-Steele), then sum_{b>=1}
+    # bucket j holds |digit| j + 1: suffix sums S_j = sum_{j' >= j} B_j'
+    # (Hillis-Steele), then sum_j S_j = sum_j (j + 1) B_j
     d = 1
     while d < nb:
         ident = _pt_inf(F, (nwin, d), dev)
@@ -619,9 +661,6 @@ def msm_plain(points: torch.Tensor, scalars: torch.Tensor,
                         for b, i in zip(buckets, ident))
         buckets = pt_add(F, buckets, shifted)
         d *= 2
-    ident = _pt_inf(F, (nwin, 1), dev)
-    buckets = tuple(torch.cat([i, b[:, 1:]], dim=1)
-                    for b, i in zip(buckets, ident))
     while buckets[0].shape[1] > 1:
         even = (slice(None), slice(0, None, 2))
         odd = (slice(None), slice(1, None, 2))

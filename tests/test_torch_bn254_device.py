@@ -239,15 +239,17 @@ def test_fixed_base_twin_matches_host(g2):
 
 
 def test_fixed_base_table_matches_host():
-    t = bd.fixed_base_table(False)
-    assert t.shape == (bd.FB_WINDOWS, bd.FB_ENTRIES, 2, 8)
-    for j, d in ((0, 1), (0, 15), (17, 3), (63, 9)):
+    """The c-bit table (entry [j][d - 1] = d 2^(c j) G) at c = 4, and the
+    Montgomery bases the card's table build starts from."""
+    t = bd.fixed_base_table(False, 4)
+    assert t.shape == (bd.msm_windows(4), 8, 2, 8)
+    for j, d in ((0, 1), (0, 8), (17, 3), (63, 5)):
         assert bd.unpack_g1(t[j, d - 1])[0] == jbn.g1_mul_gen(d << (4 * j))
-    t2 = bd.fixed_base_table(True)
+    t2 = bd.fixed_base_table(True, 4)
     assert bd.unpack_g2(t2[5, 6])[0] == jbn.g2_mul_gen(7 << 20)
-    mont = bd.fixed_base_table_mont(False)
-    assert bd.limbs_to_ints(mont[2, 4, :1])[0] == \
-        bd.limbs_to_ints(t[2, 4, :1])[0] * (1 << 256) % P
+    mont = bd.fixed_base_bases_mont(False, 4)
+    assert bd.limbs_to_ints(mont[2, :1])[0] == \
+        bd.limbs_to_ints(t[2, 0, :1])[0] * (1 << 256) % P
 
 
 @pytest.mark.parametrize("logn", range(1, 11))

@@ -692,7 +692,7 @@ def _fr(n, seed, device):
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
-@pytest.mark.parametrize("n", [1, 3, 100, 1 << 12])
+@pytest.mark.parametrize("n", [1, 3, 100, 1 << 12, 4133])
 def test_bn254_fixed_base_matches_plain(card, g2, n):
     from zkevm_prover_tpu_torch.ops import bn254_cuda
     from zkevm_prover_tpu_torch.ops import bn254_device as bd
@@ -704,6 +704,67 @@ def test_bn254_fixed_base_matches_plain(card, g2, n):
     out = bd.fixed_base(k, g2)
     assert bn254_cuda.launches[key] == before + 1
     assert torch.equal(out, bd.fixed_base_plain(k, g2))
+
+
+def _signed_digits(s, c):
+    """ops/bn254_device.signed_digits of one scalar, in Python ints."""
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+
+    out, carry = [], 0
+    for w in range(bd.msm_windows(c)):
+        v = ((s >> (c * w)) & ((1 << c) - 1)) + carry
+        carry = int(v > 1 << (c - 1))
+        out.append(v - (carry << c))
+    return out
+
+
+def _doubling_scalars(c, count):
+    """Scalars 2 d 2^(c j) mod r whose digit j is d: at window j the
+    kernel's running sum equals the table entry it adds (a doubling)."""
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+    from zkevm_prover_tpu_torch.ops.bn254 import R
+
+    out = []
+    for j in range(bd.msm_windows(c) - 1, 0, -1):
+        for d in range(1, (1 << (c - 1)) + 1):
+            s = 2 * d * pow(2, c * j, R) % R
+            if _signed_digits(s, c)[j] == d:
+                out.append(s)
+                if len(out) == count:
+                    return out
+    return out
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_bn254_fixed_base_edges_cold_and_warm(card, g2):
+    """Zero, one, r - 1, k beside r - k, repeated scalars, r itself (its
+    top digit cancels the rest), scalars >= r and >= 2^254 (reduced), and
+    scalars whose digits double the running sum at the kernel's own window,
+    against the host; a cold call (the table built inside it) == a warm
+    one."""
+    from zkevm_prover_tpu_torch.ops import bn254 as host
+    from zkevm_prover_tpu_torch.ops import bn254_cuda
+    from zkevm_prover_tpu_torch.ops import bn254_device as bd
+
+    R = host.R
+    rng = np.random.default_rng(5 + g2)
+    rand = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(289)]
+    k = rand[0]
+    edge = [0, 1, R - 1, k, R - k, k, R, R + 5, (1 << 256) - 1,
+            (1 << 254) + 3, 2 * R + 1]
+    n = len(edge) + len(rand) + 8
+    c = bn254_cuda.fixed_base_plan(n, g2)["c"]
+    dbl = _doubling_scalars(c, 8)
+    ks = edge + dbl + rand[:n - len(edge) - len(dbl)]
+    scalars = torch.from_numpy(bd.ints_to_limbs(ks).copy()).to(card)
+    bn254_cuda.clear_fixed_base_tables()
+    cold = bd.fixed_base(scalars, g2)
+    warm = bd.fixed_base(scalars, g2)
+    assert torch.equal(cold, warm)
+    mul = host.g2_mul_gen if g2 else host.g1_mul_gen
+    assert (bd.unpack_g2 if g2 else bd.unpack_g1)(cold) == \
+        [mul(v % R) for v in ks]
+    assert len(dbl) > 0
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
@@ -746,7 +807,8 @@ def test_bn254_msm_skewed_scalars_and_edges(card):
     assert msm.g1_msm(edge, sc, card) == want
 
 
-@pytest.mark.parametrize("logn", [0, 1, 5, 10, 11, 16])
+@pytest.mark.parametrize("logn", [0, 1, 5, 10, 11, 16, 2, 3, 4, 6, 7, 8, 9,
+                                  12, 13, 21])
 def test_bn254_ntt_matches_plain(card, logn):
     from zkevm_prover_tpu_torch.ops import bn254_cuda
     from zkevm_prover_tpu_torch.ops import bn254_device as bd

@@ -1,7 +1,8 @@
 """Inputs and device timing shared by `chip_smoke.py` and `msm_bench`:
 random Fr scalars on the card, the witness-like skewed scalar sets of the
-MSM's checks, and one call's device time by kernel under torch.profiler.
-Nothing here runs without a card."""
+MSM's checks, a cold call's time (a cache dropped before it) and one
+call's device time by kernel under torch.profiler. Nothing here runs
+without a card."""
 
 from __future__ import annotations
 
@@ -39,6 +40,26 @@ def skewed_bases_k(torch, n: int, seed: int, device="cuda"):
     k = random_fr(torch, n, seed + 1, device)
     k[torch.randint(0, 64, (n,), device=device, generator=g) == 0] = 0
     return k
+
+
+def cold_ms(torch, fn, clear, reps: int = 3) -> tuple:
+    """(mean ms, the last output) of `reps` calls of fn, each after
+    clear() (a cached table dropped, so that the call builds its own), by
+    CUDA events around the call alone; one untimed call first, so that
+    the host's own caches (a table's bases) are warm."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        clear()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps, out
 
 
 def short_name(name: str) -> str:

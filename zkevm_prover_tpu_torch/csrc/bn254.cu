@@ -40,26 +40,41 @@
 //    Bound: operations, the least over c of a mixed addition per nonzero
 //    signed digit and 2^c (254/c + 1) full additions (chip_smoke.py
 //    msm_bound).
-//  - fixed_base_kernel: k * G1 and k * G2 for a batch of scalars, what
-//    groth16_setup's loops compute one at a time on the host
-//    (zkevm_prover_tpu/snark/groth16.py:89-119 through ops/bn254.py
-//    g1_mul_gen :434 / g2_mul_gen :532). The window table of the generator
-//    (64 windows of 4 bits, 15 affine multiples each, Montgomery) sits in
-//    shared memory; each thread takes a run of RUN scalars, adds one table
-//    entry per nonzero digit, then normalises its run to affine with one
-//    Fermat inversion (Montgomery's trick). Bound: operations, 64 mixed
-//    additions a point plus the normalisation.
-//  - fr_twiddle_kernel, fr_ntt_prologue_kernel, fr_ntt_shared_kernel,
-//    fr_ntt_stage_kernel, fr_ntt_epilogue_kernel (the fr_ntt chain) and
-//    fr_pointwise_kernel: bn254.fr_fft (ops/bn254.py:590) over the scalar
-//    field, forward and inverse, natural order in and out, with an optional
-//    coset shift x_i * g^i before it and y_i * h^i after it, and the
-//    quotient's pointwise (a * b - c) * z (groth16.py _quotient_coeffs
-//    :123). Radix-2 decimation in time: the prologue converts to Montgomery
-//    form, shifts and writes in bit-reversed order; the first stages (up to
-//    2^10 elements, 32 KiB) run in shared memory, one block per tile; each
-//    later stage is one launch over n/2 butterflies. Bound: operations,
-//    (n/2) log n butterflies of one product each.
+//  - fb_table_kernel, fb_normalize_kernel, fixed_base_kernel: k * G1 and
+//    k * G2 for a batch of scalars, what groth16_setup's loops compute one
+//    at a time on the host (zkevm_prover_tpu/snark/groth16.py:89-119
+//    through ops/bn254.py g1_mul_gen :434 / g2_mul_gen :532). The
+//    generator's table for signed c-bit digits (d 2^(c j) G for
+//    d = 1 .. 2^(c-1), one row a window; c from the cost model
+//    ops/bn254_cuda.py fixed_base_plan) is built on the card (runs of
+//    entries a thread, then one batch inversion a block) and cached by the
+//    wrapper; each thread then takes one scalar (its 32 bytes with 16-byte
+//    loads), adds one entry per nonzero digit in XYZZ coordinates (10
+//    products a mixed addition, 28 over Fp2) and the block normalises its
+//    points with one inversion (a product tree in shared memory,
+//    block_affine). Batch-affine additions (6 products, 17 over Fp2)
+//    would need an inversion per window step across a batch: one per
+//    block costs a lone lane about 45 products' instructions and tens of
+//    microseconds of latency a step, one per grid a pass over the
+//    accumulators in device memory a step. Bound: operations, the least
+//    over c of batch-affine additions per nonzero digit and the table's
+//    build (chip_smoke.py fixed_base_bound).
+//  - fr_powers_kernel (cached tables) and fr_ntt_pass_kernel (the
+//    fr_ntt chain) and fr_pointwise_kernel: bn254.fr_fft (ops/bn254.py:590)
+//    over the scalar field, forward and inverse, natural order in and
+//    out, with an optional coset shift x_i * g^i before it and y_i * h^i
+//    after it, and the quotient's pointwise (a * b - c) * z (groth16.py
+//    _quotient_coeffs :123). The transform is the four-step (Bailey)
+//    decomposition into at most three passes over the array
+//    (ops/bn254_device.py ntt_plan: 2^21 and 2^22 take two), each a set of
+//    sub-transforms of up to 2^11 points in shared memory with every
+//    radix-2 stage, the twist between passes fused into a pass's store, the
+//    bit reversal into the tile's load; the elements stay in ordinary form
+//    (Montgomery factors), and the shift, the post and the inverse's 1/n
+//    ride on the first load and the last store, their powers the product of
+//    two cached tables of about sqrt(n) entries. Bound: operations, (n/2)
+//    log n butterflies of one product, one more an element for each factor
+//    and each power series (chip_smoke.py ntt_bound).
 //
 // Every point or element crosses the interface as 32-bit limbs in
 // ordinary (not Montgomery) form: a G1 point (x, y) 16 words, a G2 point
@@ -83,11 +98,9 @@ using namespace bn254;
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int FB_BITS = 4;                       // fixed-base window
-constexpr int FB_WINDOWS = 256 / FB_BITS;        // 64
-constexpr int FB_ENTRIES = (1 << FB_BITS) - 1;   // 15 nonzero digits
-constexpr int FB_RUN = 16;                       // scalars a thread normalises
-constexpr int NTT_TILE_LOG = 10;                 // shared-memory stages
+constexpr int FB_RUN = 32;          // table entries a thread of the build
+constexpr int NTT_TILE_LOG = 11;    // a pass's largest sub-transform
+constexpr int NTT_PLAN = 10;        // int64 fields of a pass in the plan
 
 struct U8 {
   uint32_t v[8];
@@ -731,72 +744,196 @@ __global__ void __launch_bounds__(32)
 // Fixed-base products k * G
 // ---------------------------------------------------------------------------
 
+// A block of G1 threads, or of G2 threads (whose Fp2 group law holds about
+// twice the registers): each thread one scalar, or one run of table entries
 template <class F>
-__global__ void __launch_bounds__(THREADS)
-    fixed_base_kernel(const uint32_t* __restrict__ table,
-                      const uint32_t* __restrict__ scalars, int64_t n,
-                      uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  constexpr int W = words<F>();
-  constexpr int TABLE_WORDS = FB_WINDOWS * FB_ENTRIES * 2 * W;
-  for (int t = threadIdx.x; t < TABLE_WORDS; t += blockDim.x)
-    smem[t] = table[t];
+__host__ __device__ constexpr int fb_threads() {
+  return words<F>() == 8 ? 256 : 128;
+}
+
+// fixed_base_kernel's blocks an SM: G1 two at its 98 registers; G2 three
+// (168 registers: 5 % faster than two at 181, `msm_bench --parent`)
+template <class F>
+__host__ __device__ constexpr int fb_blocks() {
+  return words<F>() == 8 ? 1 : 3;
+}
+
+// The affine points of the block's XYZZ points, one a thread, with one
+// inversion for the whole block (Montgomery's trick as a product tree in
+// shared memory, `tree` 2 blockDim.x elements): the leaves are the ZZZ
+// (1 for a thread past the end or at infinity), the inner nodes their
+// products (blockDim.x - 1), the root inverted by finv in one thread,
+// the inverses pushed down (2 products a node); then 1/ZZ = ZZ^2 / ZZZ^2,
+// x = X / ZZ, y = Y / ZZZ. Montgomery form in and out, zeros for
+// infinity. Every thread of the block must call it (blockDim.x a power of
+// two).
+template <class F>
+__device__ __forceinline__ void block_affine(const Xyzz<F>& p, bool live,
+                                             F* tree, Aff<F>& out) {
+  const int T = blockDim.x, t = threadIdx.x;
+  const bool inf = !live || fis_zero(p.ZZ);
+  if (inf)
+    fset_one(tree[T + t]);
+  else
+    tree[T + t] = p.ZZZ;
   __syncthreads();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t run = thread_id(); run * FB_RUN < n; run += stride) {
-    const int64_t first = run * FB_RUN;
-    const int cnt = static_cast<int>(min(static_cast<int64_t>(FB_RUN),
-                                         n - first));
-    F zs[FB_RUN], pre[FB_RUN], prod;
-    fset_one(prod);
-#pragma unroll 1
-    for (int k = 0; k < cnt; ++k) {
-      const uint32_t* s = scalars + (first + k) * 8;
-      Jac<F> acc;
-      jac_set_inf(acc);
-#pragma unroll 1
-      for (int j = 0; j < FB_WINDOWS; ++j) {
-        const uint32_t d = (s[j >> 3] >> ((j & 7) * FB_BITS)) & FB_ENTRIES;
-        if (d) {
-          Aff<F> q;
-          const uint32_t* e = smem + (j * FB_ENTRIES + d - 1) * 2 * W;
-          load(q.x, e);
-          load(q.y, e + W);
-          jac_add_mixed(acc, acc, q);
-        }
-      }
-      uint32_t* o = out + (first + k) * 2 * W;
-      store(o, acc.X);
-      store(o + W, acc.Y);
-      zs[k] = acc.Z;
-      pre[k] = prod;
-      if (!fis_zero(acc.Z)) fmul(prod, prod, acc.Z);
+  for (int half = T / 2; half >= 1; half >>= 1) {
+    if (t < half) {
+      const int k = half + t;
+      fmul(tree[k], tree[2 * k], tree[2 * k + 1]);
     }
-    F inv;
-    finv(inv, prod);
-#pragma unroll 1
-    for (int k = cnt - 1; k >= 0; --k) {
-      uint32_t* o = out + (first + k) * 2 * W;
-      F x, y;
-      if (fis_zero(zs[k])) {
-        fset_zero(x);
-        fset_zero(y);
-      } else {
-        F zi, z2;
-        fmul(zi, inv, pre[k]);
-        fmul(inv, inv, zs[k]);
-        load(x, o);
-        load(y, o + W);
-        fsq(z2, zi);
-        fmul(x, x, z2);
-        fmul(z2, z2, zi);
-        fmul(y, y, z2);
-        mont_out(x);
-        mont_out(y);
-      }
-      store(o, x);
-      store(o + W, y);
+    __syncthreads();
+  }
+  if (t == 0) finv(tree[1], tree[1]);
+  __syncthreads();
+  for (int half = 1; half < T; half <<= 1) {
+    if (t < half) {
+      const int k = half + t;
+      const F inv = tree[k], a = tree[2 * k], b = tree[2 * k + 1];
+      fmul(tree[2 * k], inv, b);
+      fmul(tree[2 * k + 1], inv, a);
     }
+    __syncthreads();
+  }
+  if (inf) {
+    fset_zero(out.x);
+    fset_zero(out.y);
+    return;
+  }
+  const F w = tree[T + t];   // 1 / ZZZ
+  F zi, w2;
+  fsq(w2, w);
+  fsq(zi, p.ZZ);
+  fmul(zi, zi, w2);          // 1 / ZZ
+  fmul(out.x, p.X, zi);
+  fmul(out.y, p.Y, w);
+}
+
+// s below 2^254 (the signed digits' range): r subtracted while s >= 2^254,
+// at most four times below 2^256, so that s * G is unchanged
+__device__ __forceinline__ void reduce_scalar(uint32_t (&s)[8]) {
+#pragma unroll 1
+  while (s[7] >> 30) {
+    uint32_t d[8];
+    sub_p<Fr>(d, s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = d[j];
+  }
+}
+
+// The table build, before its normalisation: thread (window j, run q) of
+// the entries d = q FB_RUN + 1 .. q FB_RUN + FB_RUN (at most 2^(c-1)) of
+// window j: d B_j by double-and-add from bases[j] = B_j = 2^(c j) G
+// (affine, Montgomery), then B_j added once an entry, each entry's XYZZ
+// point into xyzz[j 2^(c-1) + d - 1]
+template <class F>
+__global__ void __launch_bounds__(fb_threads<F>())
+    fb_table_kernel(const uint32_t* __restrict__ bases, int c, int nwin,
+                    uint32_t* __restrict__ xyzz) {
+  constexpr int W = words<F>();
+  const int64_t nb = int64_t{1} << (c - 1);
+  const int64_t runs = (nb + FB_RUN - 1) / FB_RUN;
+  const int64_t t = thread_id();
+  if (t >= runs * nwin) return;
+  const int64_t j = t / runs;
+  const int64_t d0 = (t % runs) * FB_RUN + 1;
+  Aff<F> b;
+  load(b.x, bases + j * 2 * W);
+  load(b.y, bases + j * 2 * W + W);
+  Xyzz<F> acc;
+  xyzz_set_inf(acc);
+  const int cnt = static_cast<int>(
+      min(static_cast<int64_t>(FB_RUN), nb - d0 + 1));
+  uint32_t* dst = xyzz + (j * nb + d0 - 1) * 4 * W;
+  // the doublings and additions of d0 B from its top bit, then one
+  // addition an entry: one inlined addition for both
+  int bit = 63 - __clzll(d0), k = 0;
+#pragma unroll 1
+  while (true) {
+    if (bit >= 0) xyzz_double_inl(acc, acc);
+    if (bit < 0 || ((d0 >> bit) & 1)) xyzz_add_mixed(acc, b);
+    if (bit <= 0) {
+      store_xyzz(dst + k * 4 * W, acc);
+      if (++k == cnt) break;
+    }
+    --bit;
+  }
+}
+
+// count XYZZ points to affine Montgomery form, a block at a time
+template <class F>
+__global__ void __launch_bounds__(fb_threads<F>())
+    fb_normalize_kernel(const uint32_t* __restrict__ xyzz, int64_t count,
+                        uint32_t* __restrict__ out) {
+  constexpr int W = words<F>();
+  __shared__ F tree[2 * fb_threads<F>()];
+  const int64_t i = thread_id();
+  const bool live = i < count;
+  Xyzz<F> p;
+  xyzz_set_inf(p);
+  if (live) {
+    uint32_t w[4 * W];
+    ld16(w, xyzz + i * 4 * W);
+    load(p.X, w);
+    load(p.Y, w + W);
+    load(p.ZZ, w + 2 * W);
+    load(p.ZZZ, w + 3 * W);
+  }
+  Aff<F> a;
+  block_affine(p, live, tree, a);
+  if (live) {
+    uint32_t w[2 * W];
+    store(w, a.x);
+    store(w + W, a.y);
+    st16(out + i * 2 * W, w);
+  }
+}
+
+// k_i * G, one scalar a thread: its signed c-bit digits (SignedDigits,
+// recoded once as the windows pass), one mixed XYZZ addition of the table
+// entry |d| 2^(c j) G (its y negated for a negative digit) per nonzero
+// digit, the first one a copy; then the block's points to affine with one
+// inversion (block_affine) and out in ordinary form
+template <class F>
+__global__ void __launch_bounds__(fb_threads<F>(), fb_blocks<F>())
+    fixed_base_kernel(const uint32_t* __restrict__ table,
+                      const uint32_t* __restrict__ scalars, int64_t n, int c,
+                      int nwin, uint32_t* __restrict__ out) {
+  constexpr int W = words<F>();
+  __shared__ F tree[2 * fb_threads<F>()];
+  const int64_t i = thread_id();
+  const bool live = i < n;
+  Xyzz<F> acc;
+  xyzz_set_inf(acc);
+  if (live) {
+    SignedDigits dg;
+    ld16(dg.s, scalars + i * 8);
+    reduce_scalar(dg.s);
+    const int64_t nb = int64_t{1} << (c - 1);
+#pragma unroll 1
+    for (int j = 0; j < nwin; ++j) {
+      bool neg;
+      const uint32_t mag = dg.next(c, neg);
+      if (mag) {
+        uint32_t w[2 * W];
+        ld16(w, table + (j * nb + mag - 1) * 2 * W);
+        Aff<F> q;
+        load(q.x, w);
+        load(q.y, w + W);
+        if (neg) fneg(q.y, q.y);
+        xyzz_add_mixed(acc, q);
+      }
+    }
+  }
+  Aff<F> a;
+  block_affine(acc, live, tree, a);
+  if (live) {
+    mont_out(a.x);
+    mont_out(a.y);
+    uint32_t w[2 * W];
+    store(w, a.x);
+    store(w + W, a.y);
+    st16(out + i * 2 * W, w);
   }
 }
 
@@ -813,6 +950,14 @@ __device__ __forceinline__ FrE fr_of(const U8& u) {
   return r;
 }
 
+// an element from 16-byte aligned shared or device memory, and back
+__device__ __forceinline__ void ld_fr(FrE& a, const uint32_t* p) {
+  ld16(a.v, p);
+}
+__device__ __forceinline__ void st_fr(uint32_t* p, const FrE& a) {
+  st16(p, a.v);
+}
+
 // base^e (Montgomery) for a small exponent
 __device__ __forceinline__ void fr_pow_small(FrE& r, const FrE& base,
                                              uint64_t e) {
@@ -826,99 +971,184 @@ __device__ __forceinline__ void fr_pow_small(FrE& r, const FrE& base,
   r = acc;
 }
 
-__device__ __forceinline__ void butterfly(FrE& u, FrE& v, const FrE& w) {
-  FrE t;
-  fmul(t, v, w);
-  fsub(v, u, t);
-  fadd(u, u, t);
-}
-
+// out[j] = scale * base^j (Montgomery) for j < count: a cached table
 __global__ void __launch_bounds__(THREADS)
-    fr_twiddle_kernel(uint32_t* __restrict__ tw, int64_t half, U8 omega) {
+    fr_powers_kernel(uint32_t* __restrict__ out, int64_t count, U8 base,
+                     U8 scale) {
   const int64_t j = thread_id();
-  if (j >= half) return;
+  if (j >= count) return;
   FrE r;
-  fr_pow_small(r, fr_of(omega), static_cast<uint64_t>(j));
-  store(tw + j * 8, r);
+  fr_pow_small(r, fr_of(base), static_cast<uint64_t>(j));
+  fmul(r, fr_of(scale), r);
+  store(out + j * 8, r);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    fr_ntt_prologue_kernel(const uint32_t* __restrict__ in,
-                           uint32_t* __restrict__ out, int64_t n, int logn,
-                           U8 shift, int has_shift) {
-  const int64_t i = thread_id();
-  if (i >= n) return;
-  FrE x;
-  load(x, in + i * 8);
-  to_mont(x, x);
-  if (has_shift) {
-    FrE g;
-    fr_pow_small(g, fr_of(shift), static_cast<uint64_t>(i));
-    fmul(x, x, g);
+// x below r from any x below 2^256 (at most five subtractions)
+__device__ __forceinline__ void reduce_full(FrE& x) {
+#pragma unroll 1
+  for (int k = 0; k < 5; ++k) {
+    uint32_t d[8];
+    if (sub_p<Fr>(d, x.v)) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x.v[j] = d[j];
   }
-  const uint64_t j =
-      logn ? __brevll(static_cast<uint64_t>(i)) >> (64 - logn) : 0;
-  store(out + j * 8, x);
 }
 
-// stages 1..tile_log of a tile of 2^tile_log elements, one block each,
-// 2^(tile_log - 1) threads
-__global__ void __launch_bounds__(1 << (NTT_TILE_LOG - 1))
-    fr_ntt_shared_kernel(uint32_t* __restrict__ data,
-                         const uint32_t* __restrict__ tw, int logn,
-                         int tile_log) {
-  __shared__ FrE tile[1 << NTT_TILE_LOG];
-  const int T = 1 << tile_log;
-  uint32_t* base = data + static_cast<int64_t>(blockIdx.x) * T * 8;
-  for (int k = threadIdx.x; k < T; k += blockDim.x) load(tile[k], base + k * 8);
-  __syncthreads();
-  const int t = threadIdx.x;
-  for (int s = 1; s <= tile_log; ++s) {
-    const int h = 1 << (s - 1);
-    const int l = t & (h - 1);
-    const int i = ((t >> (s - 1)) << s) + l;
+constexpr int NTT_THREADS = 256;
+constexpr int NTT_TILE = 1 << NTT_TILE_LOG;
+constexpr int NTT_SMEM = (NTT_TILE + NTT_TILE / 2) * 32;  // tile + twiddles
+
+// one pass of the plan (ops/bn254_device.py ntt_plan): `tiles`
+// sub-transforms of 2^lm points; tile t = t_hi t_lo' + t_lo reads the
+// elements t_hi a1 + t_lo a2 + j in_stride and writes output k to
+// t_hi b1 + t_lo b2 + k out_stride, times w_n^(t_lo k twist) when
+// twist > 0 (the four-step twist between passes)
+struct NttPass {
+  long long lm, tiles, t_lo, a1, a2, in_stride, b1, b2, out_stride, twist;
+};
+
+// base^e = hi[e >> h] * lo[e & (2^h - 1)]: two cached tables of about
+// sqrt(n) Montgomery powers; lo = nullptr for none
+struct Pow2 {
+  const uint32_t* lo;
+  const uint32_t* hi;
+  int h;
+};
+
+__device__ __forceinline__ void pow_factor(FrE& r, const Pow2& t, int64_t e) {
+  FrE a, b;
+  ld_fr(a, t.hi + (e >> t.h) * 8);
+  ld_fr(b, t.lo + (e & ((int64_t{1} << t.h) - 1)) * 8);
+  fmul(r, a, b);
+}
+
+// The elements stay in ordinary form throughout: a product by a Montgomery
+// factor (w R, g^i R) is the ordinary product. The first pass multiplies
+// each input by shift^i (in_pow) or reduces it below r; the last pass each
+// output by scale post^k (out_pow) or by scale (has_scale, the inverse's
+// 1/n). A block loads the twiddles w_(2^TL)^l (l < 2^(TL-1), Montgomery)
+// into shared memory once, then walks its tiles: each element to its
+// bit-reversed place in the tile (16-byte loads), the lm radix-2 DIT
+// stages in shared memory, two at a time (stage s's twiddle w_(2^s)^l =
+// w_(2^TL)^(l 2^(TL - s)); stage 1's is 1), the twist, the outputs. Two
+// stages at a time took the forward transform at 2^21 from 0.915 to
+// 0.871 ms of device time (`msm_bench --parent`, NVIDIA H100). src and
+// dst may be
+// one buffer (a middle pass): a tile reads all of its elements before it
+// writes any, and no two tiles share one.
+__global__ void __launch_bounds__(NTT_THREADS, 2)
+    fr_ntt_pass_kernel(const uint32_t* src, uint32_t* dst,
+                       const uint32_t* __restrict__ twiddles, NttPass p,
+                       Pow2 twist, Pow2 in_pow, Pow2 out_pow, U8 scale,
+                       int first, int last, int has_scale) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* tile = reinterpret_cast<uint32_t*>(smem4);
+  uint32_t* wsh = tile + NTT_TILE * 8;
+  for (int k = threadIdx.x; k < NTT_TILE / 2; k += blockDim.x) {
     FrE w;
-    load(w, tw + (static_cast<int64_t>(l) << (logn - s)) * 8);
-    butterfly(tile[i], tile[i + h], w);
+    ld_fr(w, twiddles + k * 8);
+    st_fr(wsh + k * 8, w);
+  }
+  const int lm = static_cast<int>(p.lm);
+  const int m = 1 << lm;
+  for (int64_t t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int64_t th = t / p.t_lo, tl = t % p.t_lo;
+    const int64_t ib = th * p.a1 + tl * p.a2, ob = th * p.b1 + tl * p.b2;
+    for (int j = threadIdx.x; j < m; j += blockDim.x) {
+      const int64_t gi = ib + j * p.in_stride;
+      FrE x;
+      ld_fr(x, src + gi * 8);
+      if (first && in_pow.lo) {
+        FrE f;
+        pow_factor(f, in_pow, gi);
+        fmul(x, x, f);
+      } else if (first) {
+        reduce_full(x);
+      }
+      const int r = lm ? static_cast<int>(__brev(j) >> (32 - lm)) : 0;
+      st_fr(tile + r * 8, x);
+    }
+    __syncthreads();
+    // stages s and s + 1 at once in registers (a radix-4 step: four
+    // elements, the same four products as two radix-2 stages, half the
+    // shared-memory traffic and barriers), then a last radix-2 stage when
+    // lm is odd
+    int s = 1;
+    for (; s < lm; s += 2) {
+      const int h = 1 << (s - 1);
+      for (int q = threadIdx.x; q < m / 4; q += blockDim.x) {
+        const int l = q & (h - 1);
+        const int i = ((q >> (s - 1)) << (s + 1)) + l;
+        FrE a0, a1, a2, a3, w;
+        ld_fr(a0, tile + i * 8);
+        ld_fr(a1, tile + (i + h) * 8);
+        ld_fr(a2, tile + (i + 2 * h) * 8);
+        ld_fr(a3, tile + (i + 3 * h) * 8);
+        if (s > 1) {
+          ld_fr(w, wsh + (l << (NTT_TILE_LOG - s)) * 8);
+          fmul(a1, a1, w);
+          fmul(a3, a3, w);
+        }
+        FrE b0, b2;
+        fadd(b0, a0, a1);
+        fsub(a1, a0, a1);     // b1
+        fadd(b2, a2, a3);
+        fsub(a3, a2, a3);     // b3
+        if (s > 1) {   // at s = 1, l = 0 and this twiddle is 1
+          ld_fr(w, wsh + (l << (NTT_TILE_LOG - s - 1)) * 8);
+          fmul(b2, b2, w);
+        }
+        ld_fr(w, wsh + ((l + h) << (NTT_TILE_LOG - s - 1)) * 8);
+        fmul(a3, a3, w);
+        fadd(a0, b0, b2);
+        fsub(a2, b0, b2);
+        fadd(b0, a1, a3);
+        fsub(a3, a1, a3);
+        st_fr(tile + i * 8, a0);
+        st_fr(tile + (i + h) * 8, b0);
+        st_fr(tile + (i + 2 * h) * 8, a2);
+        st_fr(tile + (i + 3 * h) * 8, a3);
+      }
+      __syncthreads();
+    }
+    if (s == lm) {
+      const int h = 1 << (s - 1);
+      for (int b = threadIdx.x; b < m / 2; b += blockDim.x) {
+        const int l = b & (h - 1);
+        const int i = ((b >> (s - 1)) << s) + l;
+        FrE u, v, sum;
+        ld_fr(u, tile + i * 8);
+        ld_fr(v, tile + (i + h) * 8);
+        if (s > 1) {
+          FrE w;
+          ld_fr(w, wsh + (l << (NTT_TILE_LOG - s)) * 8);
+          fmul(v, v, w);
+        }
+        fadd(sum, u, v);
+        fsub(v, u, v);
+        st_fr(tile + i * 8, sum);
+        st_fr(tile + (i + h) * 8, v);
+      }
+      __syncthreads();
+    }
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+      FrE y, f;
+      ld_fr(y, tile + k * 8);
+      if (p.twist) {
+        pow_factor(f, twist, tl * k * p.twist);
+        fmul(y, y, f);
+      }
+      const int64_t go = ob + k * p.out_stride;
+      if (last && out_pow.lo) {
+        pow_factor(f, out_pow, go);
+        fmul(y, y, f);
+      } else if (last && has_scale) {
+        fmul(y, y, fr_of(scale));
+      }
+      st_fr(dst + go * 8, y);
+    }
     __syncthreads();
   }
-  for (int k = threadIdx.x; k < T; k += blockDim.x) store(base + k * 8, tile[k]);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    fr_ntt_stage_kernel(uint32_t* __restrict__ data,
-                        const uint32_t* __restrict__ tw, int64_t n, int logn,
-                        int s) {
-  const int64_t t = thread_id();
-  if (t >= n / 2) return;
-  const int64_t h = int64_t{1} << (s - 1);
-  const int64_t l = t & (h - 1);
-  const int64_t i = ((t >> (s - 1)) << s) + l;
-  FrE u, v, w;
-  load(u, data + i * 8);
-  load(v, data + (i + h) * 8);
-  load(w, tw + (l << (logn - s)) * 8);
-  butterfly(u, v, w);
-  store(data + i * 8, u);
-  store(data + (i + h) * 8, v);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    fr_ntt_epilogue_kernel(const uint32_t* __restrict__ data,
-                           uint32_t* __restrict__ out, int64_t n, U8 scale,
-                           U8 post, int has_post) {
-  const int64_t i = thread_id();
-  if (i >= n) return;
-  FrE x;
-  load(x, data + i * 8);
-  fmul(x, x, fr_of(scale));
-  if (has_post) {
-    FrE g;
-    fr_pow_small(g, fr_of(post), static_cast<uint64_t>(i));
-    fmul(x, x, g);
-  }
-  from_mont(x, x);
-  store(out + i * 8, x);
 }
 
 // (a * b - c) * z in ordinary form: mont(a, b) = ab/R, mont(c, 1) = c/R,
@@ -954,27 +1184,15 @@ U8 u8_of(const void* p) {
 
 int status() { return static_cast<int>(cudaGetLastError()); }
 
-template <class F>
-int fixed_base_launch(const void* table, const void* scalars, long long n,
-                      void* out, cudaStream_t st) {
-  constexpr int bytes = FB_WINDOWS * FB_ENTRIES * 2 * words<F>() * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      fixed_base_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
+// the largest grid of `kernel` that is resident at once, at most `want`
+template <class K>
+int resident_grid(K kernel, int threads, int smem, int64_t want) {
   int per_sm = 0, sms = 0, dev = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fixed_base_kernel<F>,
-                                                THREADS, bytes);
-  const int64_t runs = (n + FB_RUN - 1) / FB_RUN;
-  int grid = blocks_for(runs);
-  const int most = sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > most) grid = most;
-  fixed_base_kernel<F><<<grid, THREADS, bytes, st>>>(
-      static_cast<const uint32_t*>(table),
-      static_cast<const uint32_t*>(scalars), n, static_cast<uint32_t*>(out));
-  return status();
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  const int64_t most = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(want < most ? want : most);
 }
 
 }  // namespace
@@ -987,16 +1205,16 @@ using G = G1F;
 
 extern "C" {
 
-// FB_BITS, FB_WINDOWS, FB_RUN, NTT_TILE_LOG, the library's group (1 or
-// 2) and REDUCE_MAX: what the wrapper builds tables and plans for and
+// FB_RUN, the fixed-base block (fb_threads), NTT_TILE_LOG, the library's
+// group (1 or 2), REDUCE_MAX and NTT_PLAN: what the wrapper plans for and
 // checks
 int bn254_params(int* out) {
-  out[0] = FB_BITS;
-  out[1] = FB_WINDOWS;
-  out[2] = FB_RUN;
-  out[3] = NTT_TILE_LOG;
-  out[4] = BN254_G2 ? 2 : 1;
-  out[5] = REDUCE_MAX;
+  out[0] = FB_RUN;
+  out[1] = fb_threads<G>();
+  out[2] = NTT_TILE_LOG;
+  out[3] = BN254_G2 ? 2 : 1;
+  out[4] = REDUCE_MAX;
+  out[5] = NTT_PLAN;
   return 0;
 }
 
@@ -1091,53 +1309,95 @@ int bn254_msm_sum(const void* pts_mont, const void* sorted,
   return status();
 }
 
+// The generator's table for signed c-bit digits: entry [j][d - 1] is the
+// affine d 2^(c j) G (Montgomery), d = 1 .. 2^(c-1), j < nwin, from the
+// nwin bases 2^(c j) G (affine, Montgomery); `xyzz` holds the entries'
+// XYZZ points between the build and its normalisation
+int bn254_fixed_base_table(const void* bases, int c, int nwin, void* xyzz,
+                           void* table, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t nb = int64_t{1} << (c - 1);
+  const int64_t runs = (nb + FB_RUN - 1) / FB_RUN;
+  constexpr int T = fb_threads<G>();
+  fb_table_kernel<G><<<blocks_for(runs * nwin, T), T, 0, st>>>(
+      static_cast<const uint32_t*>(bases), c, nwin,
+      static_cast<uint32_t*>(xyzz));
+  int err = status();
+  if (err) return err;
+  fb_normalize_kernel<G><<<blocks_for(nb * nwin, T), T, 0, st>>>(
+      static_cast<const uint32_t*>(xyzz), nb * nwin,
+      static_cast<uint32_t*>(table));
+  return status();
+}
+
+// k_i * G for n scalars from that table (fixed_base_kernel), affine,
+// ordinary form, zeros for infinity
 int bn254_fixed_base(const void* table, const void* scalars, long long n,
-                     void* out, void* stream) {
+                     int c, int nwin, void* out, void* stream) {
   if (n <= 0) return 0;
-  return fixed_base_launch<G>(table, scalars, n, out,
-                              static_cast<cudaStream_t>(stream));
+  constexpr int T = fb_threads<G>();
+  fixed_base_kernel<G><<<blocks_for(n, T), T, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(table),
+      static_cast<const uint32_t*>(scalars), n, c, nwin,
+      static_cast<uint32_t*>(out));
+  return status();
 }
 
 #if !BN254_G2
 
-int bn254_fr_twiddles(void* tw, long long half, const void* omega,
-                      void* stream) {
-  if (half <= 0) return 0;
-  fr_twiddle_kernel<<<blocks_for(half), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(tw), half, u8_of(omega));
+// out[j] = scale * base^j for j < count (Montgomery in and out)
+int bn254_fr_powers(void* out, long long count, const void* base,
+                    const void* scale, void* stream) {
+  if (count <= 0) return 0;
+  fr_powers_kernel<<<blocks_for(count), THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), count, u8_of(base), u8_of(scale));
   return status();
 }
 
-// the whole transform: prologue, shared stages, global stages, epilogue;
-// `work` holds n Montgomery elements between them
-int bn254_fr_ntt(const void* in, void* out, void* work, const void* tw,
-                 long long n, int logn, const void* shift, int has_shift,
-                 const void* scale, const void* post, int has_post,
-                 void* stream) {
-  if (n <= 0) return 0;
+// The whole transform: the passes of `plan` (NTT_PLAN int64 fields each,
+// ops/bn254_device.py ntt_plan), in -> out for one pass, else in -> work
+// (-> work) -> out. twiddles: w_(2^NTT_TILE_LOG)^l (or its inverse's);
+// (tw_lo, tw_hi, tw_h): w_n's powers for the twists; (in_lo, ...) shift's,
+// (out_lo, ...) scale post's, nullptr for none; scale (Montgomery) when
+// has_scale and there is no post.
+int bn254_fr_ntt(const void* in, void* out, void* work, const void* twiddles,
+                 const long long* plan, int passes, const void* tw_lo,
+                 const void* tw_hi, int tw_h, const void* in_lo,
+                 const void* in_hi, int in_h, const void* out_lo,
+                 const void* out_hi, int out_h, const void* scale,
+                 int has_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto wk = static_cast<uint32_t*>(work);
-  auto t = static_cast<const uint32_t*>(tw);
-  fr_ntt_prologue_kernel<<<blocks_for(n), THREADS, 0, st>>>(
-      static_cast<const uint32_t*>(in), wk, n, logn, u8_of(shift), has_shift);
-  int e = status();
-  if (e) return e;
-  const int tile_log = logn < NTT_TILE_LOG ? logn : NTT_TILE_LOG;
-  if (tile_log > 0) {
-    fr_ntt_shared_kernel<<<static_cast<int>(n >> tile_log),
-                           1 << (tile_log - 1), 0, st>>>(wk, t, logn,
-                                                         tile_log);
-    if ((e = status())) return e;
+  // the kernel's shared memory and its resident grid, set once
+  static int resident = 0;
+  if (!resident) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fr_ntt_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        NTT_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    resident = resident_grid(fr_ntt_pass_kernel, NTT_THREADS, NTT_SMEM,
+                             int64_t{1} << 40);
   }
-  for (int s = tile_log + 1; s <= logn; ++s) {
-    fr_ntt_stage_kernel<<<blocks_for(n / 2), THREADS, 0, st>>>(wk, t, n, logn,
-                                                                s);
-    if ((e = status())) return e;
+  const Pow2 tw{static_cast<const uint32_t*>(tw_lo),
+                static_cast<const uint32_t*>(tw_hi), tw_h};
+  const Pow2 ip{static_cast<const uint32_t*>(in_lo),
+                static_cast<const uint32_t*>(in_hi), in_h};
+  const Pow2 op{static_cast<const uint32_t*>(out_lo),
+                static_cast<const uint32_t*>(out_hi), out_h};
+  for (int q = 0; q < passes; ++q) {
+    const long long* f = plan + q * NTT_PLAN;
+    const NttPass p{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9]};
+    const uint32_t* src = static_cast<const uint32_t*>(q ? work : in);
+    uint32_t* dst = static_cast<uint32_t*>(q == passes - 1 ? out : work);
+    const int grid = static_cast<int>(p.tiles < resident ? p.tiles : resident);
+    fr_ntt_pass_kernel<<<grid, NTT_THREADS, NTT_SMEM, st>>>(
+        src, dst, static_cast<const uint32_t*>(twiddles), p, tw, ip, op,
+        u8_of(scale), q == 0, q == passes - 1, has_scale);
+    const int err = status();
+    if (err) return err;
   }
-  fr_ntt_epilogue_kernel<<<blocks_for(n), THREADS, 0, st>>>(
-      wk, static_cast<uint32_t*>(out), n, u8_of(scale), u8_of(post), has_post);
-  return status();
+  return 0;
 }
 
 int bn254_fr_pointwise(const void* a, const void* b, const void* c,

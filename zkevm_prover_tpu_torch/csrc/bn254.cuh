@@ -40,6 +40,11 @@ struct Fq {
                                0x7879462c, 0x666ea36f, 0x9a07df2f, 0x0e0a77c1};
     return v[j];
   }
+  static __device__ __forceinline__ uint32_t r3(int j) {  // 2^768 mod p
+    constexpr uint32_t v[8] = {0xda1530df, 0xb1cd6daf, 0xa7283db6, 0x62f210e6,
+                               0x0ada0afb, 0xef7f0b0c, 0x2d592544, 0x20fd6e90};
+    return v[j];
+  }
 };
 
 struct Fr {
@@ -58,6 +63,11 @@ struct Fr {
   static __device__ __forceinline__ uint32_t one(int j) {
     constexpr uint32_t v[8] = {0x4ffffffb, 0xac96341c, 0x9f60cd29, 0x36fc7695,
                                0x7879462e, 0x666ea36f, 0x9a07df2f, 0x0e0a77c1};
+    return v[j];
+  }
+  static __device__ __forceinline__ uint32_t r3(int j) {
+    constexpr uint32_t v[8] = {0xb4bf0040, 0x5e94d8e1, 0x1cfbb6b8, 0x2a489cbe,
+                               0xa19fcfed, 0x893cc664, 0x7fcc657c, 0x0cf8594b};
     return v[j];
   }
 };
@@ -326,29 +336,130 @@ __device__ __forceinline__ void from_mont(Fe<M>& r, const Fe<M>& a) {
   fmul(r, a, one);
 }
 
-// r = a^e (Montgomery), e given as 8 limbs, square-and-multiply from the top
-// (not inlined: it runs once per inversion, and inlined copies of its loop
-// cost minutes of ptxas time)
-template <class M>
-__device__ __noinline__ void fpow(Fe<M>& r, const Fe<M>& a,
-                                     const uint32_t (&e)[8]) {
-  Fe<M> acc;
-  fset_one(acc);
-  for (int i = 255; i >= 0; --i) {
-    fsq(acc, acc);
-    if ((e[i >> 5] >> (i & 31)) & 1) fmul(acc, acc, a);
-  }
-  r = acc;
+// a >>= 1 over 8 limbs
+__device__ __forceinline__ void shr1(uint32_t (&a)[8]) {
+#pragma unroll
+  for (int j = 0; j < 7; ++j) a[j] = __funnelshift_r(a[j], a[j + 1], 1);
+  a[7] >>= 1;
 }
 
-// Fermat inverse a^(p-2); 0 -> 0
+// x / 2 mod p for x < p: (x + p) / 2 when x is odd (x + p < 2^255)
 template <class M>
-__device__ __forceinline__ void finv(Fe<M>& r, const Fe<M>& a) {
-  uint32_t e[8];
+__device__ __forceinline__ void half_mod(uint32_t (&x)[8]) {
+  if (x[0] & 1) {
+    asm("add.cc.u32  %0, %0, %8;\n\t"
+        "addc.cc.u32 %1, %1, %9;\n\t"
+        "addc.cc.u32 %2, %2, %10;\n\t"
+        "addc.cc.u32 %3, %3, %11;\n\t"
+        "addc.cc.u32 %4, %4, %12;\n\t"
+        "addc.cc.u32 %5, %5, %13;\n\t"
+        "addc.cc.u32 %6, %6, %14;\n\t"
+        "addc.u32    %7, %7, %15;"
+        : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]),
+          "+r"(x[5]), "+r"(x[6]), "+r"(x[7])
+        : "r"(M::p(0)), "r"(M::p(1)), "r"(M::p(2)), "r"(M::p(3)),
+          "r"(M::p(4)), "r"(M::p(5)), "r"(M::p(6)), "r"(M::p(7)));
+  }
+  shr1(x);
+}
+
+// d = a - b over 8 limbs; returns 0xffffffff if a < b, else 0
+__device__ __forceinline__ uint32_t sub8(uint32_t (&d)[8], const uint32_t (&a)[8],
+                                         const uint32_t (&b)[8]) {
+  uint32_t bw;
+  asm("sub.cc.u32  %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, %25, %25;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+        "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(bw)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]), "r"(0u));
+  return bw;
+}
+
+__device__ __forceinline__ bool is_one8(const uint32_t (&a)[8]) {
+  uint32_t o = a[0] ^ 1u;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) e[j] = M::p(j);
-  e[0] -= 2;  // the low limb of either modulus is odd and above 2
-  fpow(r, a, e);
+  for (int j = 1; j < 8; ++j) o |= a[j];
+  return o == 0;
+}
+
+// The inverse by the binary extended Euclidean algorithm: a lone thread's
+// inversion (a batch inversion's root, the MSM's last point) is on the
+// critical path of its block, and this takes about 25,000 simple
+// instructions where the Fermat power a^(p-2) takes 380 products (about
+// 200,000), so an eighth of the instructions and of the latency. On
+// Montgomery form: u = a R is inverted as an integer, (a R)^-1 =
+// a^-1 R^-1, and one product by R^3 gives a^-1 R. Invariants
+// x1 * u0 = u and x2 * u0 = v (mod p), u0 the input; 0 -> 0.
+template <class M>
+__device__ __noinline__ void finv(Fe<M>& r, const Fe<M>& a) {
+  uint32_t u[8], v[8], x1[8], x2[8], d[8];
+  uint32_t any = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    u[j] = a.v[j];
+    v[j] = M::p(j);
+    x1[j] = 0;
+    x2[j] = 0;
+    any |= a.v[j];
+  }
+  if (!any) {
+    fset_zero(r);
+    return;
+  }
+  x1[0] = 1;
+  while (!is_one8(u) && !is_one8(v)) {
+    while (!(u[0] & 1)) {
+      shr1(u);
+      half_mod<M>(x1);
+    }
+    while (!(v[0] & 1)) {
+      shr1(v);
+      half_mod<M>(x2);
+    }
+    if (!sub8(d, u, v)) {   // u >= v
+#pragma unroll
+      for (int j = 0; j < 8; ++j) u[j] = d[j];
+      Fe<M> s, t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s.v[j] = x1[j];
+        t.v[j] = x2[j];
+      }
+      fsub(s, s, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x1[j] = s.v[j];
+    } else {
+      sub8(d, v, u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = d[j];
+      Fe<M> s, t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s.v[j] = x2[j];
+        t.v[j] = x1[j];
+      }
+      fsub(s, s, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x2[j] = s.v[j];
+    }
+  }
+  Fe<M> inv, r3;
+  const bool one_u = is_one8(u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    inv.v[j] = one_u ? x1[j] : x2[j];
+    r3.v[j] = M::r3(j);
+  }
+  fmul(r, inv, r3);
 }
 
 // ---------------------------------------------------------------------------

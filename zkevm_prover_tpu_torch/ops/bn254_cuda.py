@@ -21,6 +21,7 @@ import torch
 
 from .. import cuda_build
 from . import bn254_device as bd
+from . import bn254 as host
 from .bn254 import R
 
 LIBRARIES = {False: "bn254", True: "bn254_g2"}   # by group: G2 or not
@@ -36,17 +37,20 @@ _FUNCTIONS = {
     "bn254_msm_sort": [_P, _P, _LL, _I, _I] + [_P] * 8,
     "bn254_msm_sum": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I]
                      + [_P] * 9,
-    "bn254_fixed_base": [_P, _P, _LL, _P, _P],
+    "bn254_fixed_base_table": [_P, _I, _I, _P, _P, _P],
+    "bn254_fixed_base": [_P, _P, _LL, _I, _I, _P, _P],
 }
 _FR_FUNCTIONS = {
-    "bn254_fr_twiddles": [_P, _LL, _P, _P],
-    "bn254_fr_ntt": [_P, _P, _P, _P, _LL, _I, _P, _I, _P, _P, _I, _P],
+    "bn254_fr_powers": [_P, _LL, _P, _P, _P],
+    "bn254_fr_ntt": [_P, _P, _P, _P, _P, _I] + [_P, _P, _I] * 3
+                    + [_P, _I, _P],
     "bn254_fr_pointwise": [_P, _P, _P, _P, _P, _LL, _P],
 }
 
 _libs: dict = {}
-_tables: dict = {}     # (g2, device) -> the fixed-base table on the card
-_twiddles: dict = {}   # (n, inverse, device) -> n/2 Montgomery powers
+_tables: dict = {}   # (g2, c, device) -> the fixed-base table on the card
+_powers: dict = {}   # (base, count, scale, device) -> Montgomery powers
+_ntt: dict = {}      # (logn, inverse, shift, post, device) -> kernel args
 
 
 def _library(g2: bool):
@@ -59,8 +63,9 @@ def _library(g2: bool):
             f.restype = ctypes.c_int
         params = (ctypes.c_int * 6)()
         lib.bn254_params(params)
-        if (params[0], params[1], params[4], params[5]) != (
-                bd.FB_BITS, bd.FB_WINDOWS, 2 if g2 else 1, REDUCE_MAX):
+        if tuple(params) != (FB_RUN, FB_THREADS[g2], bd.NTT_TILE_LOG,
+                             2 if g2 else 1, REDUCE_MAX,
+                             len(bd.NTT_PLAN_FIELDS)):
             raise RuntimeError(f"{LIBRARIES[g2]}'s parameters "
                                f"{tuple(params)} do not match bn254_device's")
         _libs[g2] = lib
@@ -109,6 +114,10 @@ def _point_tail(g2: bool) -> tuple:
 REDUCE_MAX = 64
 SCAN_TILE = 4096
 REDUCE_THREADS = 1 << 16
+# the fixed-base table build's entries a thread and the fixed-base block,
+# by group (G2 or not)
+FB_RUN = 32
+FB_THREADS = {False: 256, True: 128}
 
 
 def msm_plan(n: int, g2: bool) -> dict:
@@ -229,62 +238,137 @@ def msm_buckets(points: torch.Tensor, scalars: torch.Tensor, g2: bool):
     return plan, buf["sorted"], buf["offsets"]
 
 
-def _table(g2: bool, device) -> torch.Tensor:
-    key = (g2, str(device))
+def fixed_base_plan(n: int, g2: bool) -> dict:
+    """The fixed-base kernel's shape for n scalars: the window c
+    (`bd.fixed_base_window`, the least Fp products of the additions and
+    the table's build, a table read past the L2 cache at its bytes'
+    time), its windows, entries a row and the table's bytes."""
+    c = bd.fixed_base_window(n, g2)
+    return {"c": c, "nwin": bd.msm_windows(c), "entries": 1 << (c - 1),
+            "table_bytes": bd.fixed_base_table_bytes(c, g2)}
+
+
+def fixed_base_table(g2: bool, c: int, device) -> torch.Tensor:
+    """The generator's c-bit table on the card, (nwin, 2^(c-1), 2[, 2], 8)
+    int32 affine d 2^(c j) G in Montgomery form, built there from the host's
+    nwin bases 2^(c j) G (`bn254_fixed_base_table`) on first use and cached
+    by (group, c, device) until `clear_fixed_base_tables`."""
+    key = (g2, c, str(device))
     if key not in _tables:
-        _tables[key] = torch.from_numpy(bd.fixed_base_table_mont(g2)).to(
-            device)
+        bases = torch.from_numpy(bd.fixed_base_bases_mont(g2, c)).to(device)
+        nwin, nb = bd.msm_windows(c), 1 << (c - 1)
+        tail = _point_tail(g2)
+        xyzz = torch.empty((nwin * nb, 2) + tail, dtype=torch.int32,
+                           device=device)
+        table = torch.empty((nwin, nb) + tail, dtype=torch.int32,
+                            device=device)
+        _call("bn254_fixed_base_table", device, bases.data_ptr(), c, nwin,
+              xyzz.data_ptr(), table.data_ptr(), g2=g2)
+        _tables[key] = table
     return _tables[key]
 
 
+def clear_fixed_base_tables() -> None:
+    """Drop the cached tables, so that the next call builds its own (a cold
+    timing)."""
+    _tables.clear()
+
+
 def fixed_base(scalars: torch.Tensor, g2: bool) -> torch.Tensor:
-    """k_i * G1 (or G2) for (N, 8) scalars below r: (N, 2, [2,] 8) affine
-    points, ordinary form, zeros for k_i = 0."""
+    """k_i * G1 (or G2) for (N, 8) scalars below 2^256 (s * G = (s mod r)
+    * G): (N, 2, [2,] 8) affine points, ordinary form, zeros where
+    k_i = 0 mod r. The table of `fixed_base_plan(N, g2)`'s window (built
+    on the first call that needs it), then one `fixed_base_kernel`
+    launch."""
     _check(scalars, "scalars", (8,))
     n = scalars.shape[0]
     dev = scalars.device
+    if scalars.data_ptr() % 16:
+        raise ValueError("bn254_cuda: scalars must be 16-byte aligned")
+    if n >= 1 << 31:
+        raise ValueError(f"bn254_cuda: {n} scalars are more than the "
+                         "fixed-base kernel's grid holds")
     out = torch.empty((n,) + _point_tail(g2), dtype=torch.int32, device=dev)
     if n:
-        _call("bn254_fixed_base", dev, _table(g2, dev).data_ptr(),
-              scalars.data_ptr(), n, out.data_ptr(), g2=g2)
+        plan = fixed_base_plan(n, g2)
+        table = fixed_base_table(g2, plan["c"], dev)
+        _call("bn254_fixed_base", dev, table.data_ptr(), scalars.data_ptr(),
+              n, plan["c"], plan["nwin"], out.data_ptr(), g2=g2)
         launches["g2_fixed_base" if g2 else "g1_fixed_base"] += 1
     return out
 
 
-def _twiddle_table(n: int, inverse: bool, device) -> torch.Tensor:
-    key = (n, inverse, str(device))
-    if key not in _twiddles:
-        w = bd.host.fr_w(n.bit_length() - 1)
+def _fr_powers(base: int, count: int, scale: int, device) -> torch.Tensor:
+    """(count, 8) Montgomery scale * base^j, j < count, on the card (cached;
+    `bn254_fr_powers`)."""
+    key = (base, count, scale, str(device))
+    if key not in _powers:
+        t = torch.empty((count, 8), dtype=torch.int32, device=device)
+        _call("bn254_fr_powers", device, t.data_ptr(), count,
+              _u8(_mont(base)), _u8(_mont(scale)))
+        _powers[key] = t
+    return _powers[key]
+
+
+def _pow_pair(base: int, logn: int, device, scale: int = 1) -> tuple:
+    """The kernel's two tables of base^e for e < 2^logn: lo[e mod 2^h]
+    = base^(e mod 2^h), hi[e >> h] = scale base^((e >> h) 2^h), h about
+    logn / 2; (lo, hi, h) as its arguments."""
+    h = (logn + 1) // 2
+    lo = _fr_powers(base, 1 << h, 1, device)
+    hi = _fr_powers(pow(base, 1 << h, R), 1 << (logn - h), scale, device)
+    return lo.data_ptr(), hi.data_ptr(), h
+
+
+def _ntt_args(logn: int, inverse: bool, shift, post, device) -> tuple:
+    """bn254_fr_ntt's arguments after the buffers for one form of the
+    transform (the plan, the twiddles, the twist's, shift's and post's
+    tables, the scale), and the plan; cached, so that a call's host work
+    is a lookup."""
+    key = (logn, inverse, shift, post, str(device))
+    if key not in _ntt:
+        n = 1 << logn
+        plan = bd.ntt_plan(logn)
+        fields = [p[k] for p in plan for k in bd.NTT_PLAN_FIELDS]
+        w_t, w_n = host.fr_w(bd.NTT_TILE_LOG), host.fr_w(logn)
         if inverse:
-            w = pow(w, R - 2, R)
-        half = max(1, n // 2)
-        tw = torch.empty((half, 8), dtype=torch.int32, device=device)
-        _call("bn254_fr_twiddles", device, tw.data_ptr(), half,
-              _u8(_mont(w)))
-        _twiddles[key] = tw
-    return _twiddles[key]
+            w_t, w_n = pow(w_t, R - 2, R), pow(w_n, R - 2, R)
+        twiddles = _fr_powers(w_t, 1 << (bd.NTT_TILE_LOG - 1), 1, device)
+        none = (None, None, 0)
+        scale = pow(n, R - 2, R) if inverse else 1
+        tw = _pow_pair(w_n, logn, device) if len(plan) > 1 else none
+        ip = _pow_pair(shift % R, logn, device) if shift is not None else none
+        op = (_pow_pair(post % R, logn, device, scale) if post is not None
+              else none)
+        _ntt[key] = ((twiddles.data_ptr(),
+                      (ctypes.c_longlong * len(fields))(*fields), len(plan),
+                      *tw, *ip, *op, _u8(_mont(scale)),
+                      int(inverse and post is None)), plan)
+    return _ntt[key]
 
 
 def fr_ntt(x: torch.Tensor, inverse: bool = False, shift: int | None = None,
            post: int | None = None) -> torch.Tensor:
     """bn254.fr_fft of (n, 8) Fr elements, n a power of two: x_i * shift^i
     before the transform, y_i * post^i after it (and 1/n when `inverse`).
-    One counted launch chain: prologue, shared-memory stages, one launch
-    per later stage, epilogue."""
+    One counted launch chain: the passes of `bd.ntt_plan(log n)` (two at
+    2^12 to 2^22), their power tables cached on the card."""
     _check(x, "x", (8,))
     n = x.shape[0]
     logn = n.bit_length() - 1
     if n == 0 or 1 << logn != n:
         raise ValueError(f"bn254_cuda: fr_ntt needs a power of two, not {n}")
+    if logn > host.FR_TWO_ADICITY:
+        raise ValueError(f"bn254_cuda: Fr has no root of unity of order {n}")
+    if x.data_ptr() % 16:
+        raise ValueError("bn254_cuda: x must be 16-byte aligned")
     dev = x.device
-    tw = _twiddle_table(n, inverse, dev)
-    work = torch.empty_like(x)
+    args = _ntt_args(logn, inverse, shift, post, dev)
+    plan = args[1]
+    work = torch.empty_like(x) if len(plan) > 1 else x
     out = torch.empty_like(x)
-    scale = pow(n, R - 2, R) if inverse else 1
-    _call("bn254_fr_ntt", dev, x.data_ptr(), out.data_ptr(), work.data_ptr(),
-          tw.data_ptr(), n, logn, _u8(_mont(shift or 0)),
-          int(shift is not None),
-          _u8(_mont(scale)), _u8(_mont(post or 0)), int(post is not None))
+    _call("bn254_fr_ntt", dev, x.data_ptr(), out.data_ptr(),
+          work.data_ptr(), *args[0])
     launches["fr_ntt"] += 1
     return out
 

@@ -45,11 +45,6 @@ from .bn254 import INF, P, R
 LIMBS = 18          # 16-bit limbs of a twin element (288 bits)
 _M16 = 0xFFFF
 
-# fixed-base window table: 64 windows of 4 bits (csrc/bn254.cu FB_BITS)
-FB_BITS = 4
-FB_WINDOWS = 256 // FB_BITS
-FB_ENTRIES = (1 << FB_BITS) - 1
-
 
 # Fp products of one group operation in the MSM kernels' XYZZ coordinates
 # (csrc/bn254.cuh): a mixed addition 8 products and 2 squarings, a full one
@@ -77,6 +72,45 @@ def msm_window(n: int, g2: bool = False) -> int:
     `msm_cost` (the narrower window where two tie)."""
     return min(range(2, MSM_MAX_WINDOW + 1),
                key=lambda c: (msm_cost(n, c, g2), c))
+
+
+# The fixed-base products (csrc/bn254.cu fixed_base_kernel): signed c-bit
+# digits over msm_windows(c) windows, one XYZZ mixed addition (MSM_MADD)
+# per window after the first from a table of the generator's multiples
+# d 2^(c j) G, d = 1 .. 2^(c-1); a table entry costs its build's mixed
+# addition and its normalisation (3 tree products, 5 more; over Fp2 3
+# each), a table read that misses the L2 cache its bytes at the memory
+# rate, about 52.8 bytes an Fp product's time (3.35 TB/s against 264
+# multiply-adds at 16.75e12/s). The table is at most FB_TABLE_MAX bytes.
+FB_ENTRY = {False: MSM_MADD[False] + 8, True: MSM_MADD[True] + 8 * 3}
+FB_POINT_BYTES = {False: 64, True: 128}
+FB_MAX_WINDOW = 22
+FB_TABLE_MAX = 1 << 30
+L2_BYTES = 50 * 10 ** 6
+FB_TWIN_BITS = 5     # the plain twin's window (a small host table)
+
+
+def fixed_base_table_bytes(c: int, g2: bool = False) -> int:
+    return (msm_windows(c) << (c - 1)) * FB_POINT_BYTES[g2]
+
+
+def fixed_base_cost(n: int, c: int, g2: bool = False) -> float:
+    """Fp products of n fixed-base products at window c, the table's build
+    included."""
+    nwin = msm_windows(c)
+    size = fixed_base_table_bytes(c, g2)
+    miss = max(0.0, 1 - L2_BYTES / size)
+    return (n * (nwin - 1) * (MSM_MADD[g2] + miss * FB_POINT_BYTES[g2] / 52.8)
+            + (nwin << (c - 1)) * FB_ENTRY[g2])
+
+
+def fixed_base_window(n: int, g2: bool = False) -> int:
+    """The window bits of the fixed-base kernel for n scalars: the least
+    `fixed_base_cost` whose table fits FB_TABLE_MAX (the narrower window
+    where two tie)."""
+    return min((c for c in range(2, FB_MAX_WINDOW + 1)
+                if fixed_base_table_bytes(c, g2) <= FB_TABLE_MAX),
+               key=lambda c: (fixed_base_cost(n, c, g2), c))
 
 
 # ---------------------------------------------------------------------------
@@ -137,33 +171,46 @@ def unpack_g2(t) -> list:
 
 
 # ---------------------------------------------------------------------------
-# the fixed-base window table of the generators (host ints)
+# the fixed-base table of the generators (host ints)
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def fixed_base_table(g2: bool) -> np.ndarray:
-    """(FB_WINDOWS, FB_ENTRIES, 2[, 2], 8) int32: entry [j][d - 1] is the
-    affine d * 2^(4 j) * G, ordinary form."""
-    add, gen = (host.g2_add, host.G2_GEN) if g2 else (host.g1_add,
-                                                       host.G1_GEN)
-    pack = pack_g2 if g2 else pack_g1
-    rows, base = [], gen
-    for _ in range(FB_WINDOWS):
-        cur = base
-        for _d in range(FB_ENTRIES):
-            rows.append(cur)
-            cur = add(cur, base)
-        base = cur   # 16 * base
-    t = pack(rows, "cpu").numpy()
-    return t.reshape((FB_WINDOWS, FB_ENTRIES) + t.shape[1:])
+def fixed_base_bases(g2: bool, c: int) -> tuple:
+    """The affine 2^(c j) G, j < msm_windows(c): the first entry of each
+    row of the c-bit table (host points)."""
+    dbl, gen = (host.g2_double, host.G2_GEN) if g2 else (host.g1_double,
+                                                          host.G1_GEN)
+    out, cur = [], gen
+    for _ in range(msm_windows(c)):
+        out.append(cur)
+        for _b in range(c):
+            cur = dbl(cur)
+    return tuple(out)
+
+
+def fixed_base_bases_mont(g2: bool, c: int) -> np.ndarray:
+    """The bases as (nwin, 2[, 2], 8) int32 limbs in Montgomery form (the
+    card's table build starts from them)."""
+    pts = list(fixed_base_bases(g2, c))
+    t = (pack_g2 if g2 else pack_g1)(pts, "cpu")
+    v = [x * (1 << 256) % P for x in limbs_to_ints(t)]
+    return ints_to_limbs(v).reshape(t.shape).copy()
 
 
 @functools.lru_cache(maxsize=None)
-def fixed_base_table_mont(g2: bool) -> np.ndarray:
-    """The same table in Montgomery form (x * 2^256 mod p), the kernel's."""
-    t = fixed_base_table(g2)
-    v = [x * (1 << 256) % P for x in limbs_to_ints(t)]
-    return ints_to_limbs(v).reshape(t.shape).copy()
+def fixed_base_table(g2: bool, c: int = FB_TWIN_BITS) -> np.ndarray:
+    """(msm_windows(c), 2^(c-1), 2[, 2], 8) int32: entry [j][d - 1] is the
+    affine d 2^(c j) G, ordinary form (the table the card builds for the
+    kernel, in Montgomery form there)."""
+    add = host.g2_add if g2 else host.g1_add
+    rows = []
+    for base in fixed_base_bases(g2, c):
+        cur = base
+        for _d in range(1 << (c - 1)):
+            rows.append(cur)
+            cur = add(cur, base)
+    t = (pack_g2 if g2 else pack_g1)(rows, "cpu").numpy()
+    return t.reshape((msm_windows(c), 1 << (c - 1)) + t.shape[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -675,23 +722,27 @@ def msm_plain(points: torch.Tensor, scalars: torch.Tensor,
 
 
 @_plain
-def fixed_base_plain(scalars: torch.Tensor, g2: bool) -> torch.Tensor:
+def fixed_base_plain(scalars: torch.Tensor, g2: bool,
+                     c: int = FB_TWIN_BITS) -> torch.Tensor:
     """k_i * G (the plain twin of fixed_base_kernel): (N, 8) scalars below
-    r -> (N, 2, [2,] 8) affine points, from the same window table."""
+    r -> (N, 2, [2,] 8) affine points, from the c-bit table: each scalar's
+    signed digits (`signed_digits`), the entry |d| 2^(c j) G of each
+    nonzero one added (negated for d < 0) with the complete formulas."""
     F = _Fp2 if g2 else _Fp
     dev = scalars.device
     n = scalars.shape[0]
-    table = torch.from_numpy(fixed_base_table(g2)).to(dev)
+    table = torch.from_numpy(fixed_base_table(g2, c)).to(dev)
     tx = F.from_u32(table[:, :, 0])
     ty = F.from_u32(table[:, :, 1])
-    digits = _scalar_digits(scalars, FB_BITS, FB_WINDOWS)
+    digits = signed_digits(scalars, c)
     acc = _pt_inf(F, (n,), dev)
     one = F.one((n,), dev)
-    for j in range(FB_WINDOWS):
+    for j in range(digits.shape[1]):
         d = digits[:, j]
-        e = (d - 1).clamp(min=0)
-        q = _pt_select(d == 0, _pt_inf(F, (n,), dev),
-                       (tx[j, e], ty[j, e], one))
+        e = (d.abs() - 1).clamp(min=0)
+        y = ty[j, e]
+        y = _pt_select(d < 0, (F.sub(F.zero((n,), dev), y),), (y,))[0]
+        q = _pt_select(d == 0, _pt_inf(F, (n,), dev), (tx[j, e], y, one))
         acc = pt_add(F, acc, q)
     return _pt_affine_u32(F, acc)
 
@@ -755,6 +806,108 @@ def fr_ntt_plain(x: torch.Tensor, inverse: bool = False,
     return f_to_u32(FR, a)
 
 
+NTT_TILE_LOG = 11   # csrc/bn254.cu: a pass's largest sub-transform
+
+
+def ntt_plan(logn: int, tile_log: int = NTT_TILE_LOG) -> list[dict]:
+    """The passes of the NTT kernel (csrc/bn254.cu fr_ntt_pass_kernel) for
+    2^logn points: the four-step decomposition n = n_0 n_1 .. n_(P-1) into
+    P = ceil(logn / tile_log) passes (at most 3) of sub-transforms of
+    2^lm <= 2^tile_log points, the lengths as equal as they come. With
+    K_p = n_0 .. n_(p-1) and M_p = n_p .. n_(P-1), pass p < P - 1 takes the
+    tiles (row r < K_p, column c < M_(p+1)): the elements r M_p + c + j
+    M_(p+1), written back in place, output k times w_(M_p)^(c k) =
+    w_n^(c k K_p) (`twist`); the last pass the rows' contiguous
+    n_(P-1) elements, output k to the digit-reversed row index plus
+    k K_(P-1). Tile t = t_hi t_lo' + t_lo (t_lo' = `t_lo`) reads
+    t_hi a1 + t_lo a2 + j in_stride and writes t_hi b1 + t_lo b2 +
+    k out_stride."""
+    passes = max(1, -(-logn // tile_log))
+    if passes > 3:
+        raise ValueError(f"ntt_plan: 2^{logn} needs more than 3 passes")
+    ls = [logn // passes + (i < logn % passes) for i in range(passes)]
+    ns = [1 << v for v in ls]
+    K = [1]
+    for v in ns:
+        K.append(K[-1] * v)
+    M = [1]
+    for v in reversed(ns):
+        M.insert(0, M[0] * v)
+    plan = []
+    for p in range(passes):
+        if p < passes - 1:
+            plan.append(dict(lm=ls[p], tiles=K[p] * M[p + 1], t_lo=M[p + 1],
+                             a1=M[p], a2=1, in_stride=M[p + 1], b1=M[p],
+                             b2=1, out_stride=M[p + 1], twist=K[p]))
+        else:
+            plan.append(dict(lm=ls[p], tiles=K[p],
+                             t_lo=ns[1] if passes == 3 else 1,
+                             a1=M[1] if passes > 1 else 0,
+                             a2=M[2] if passes == 3 else 0, in_stride=1,
+                             b1=1 if passes > 1 else 0,
+                             b2=K[1] if passes == 3 else 0,
+                             out_stride=K[p], twist=0))
+    return plan
+
+
+NTT_PLAN_FIELDS = ("lm", "tiles", "t_lo", "a1", "a2", "in_stride", "b1",
+                   "b2", "out_stride", "twist")
+
+
+@_plain
+def fr_ntt_passes(x: torch.Tensor, inverse: bool = False,
+                  shift: int | None = None, post: int | None = None,
+                  tile_log: int = NTT_TILE_LOG) -> torch.Tensor:
+    """The NTT kernel's algorithm in torch ops: the passes of
+    `ntt_plan(logn, tile_log)` with their index maps, the bit-reversed
+    tile, the radix-2 DIT stages on w_(2^tile_log)'s powers, the twists and
+    the first load's and last store's factors. The same function as
+    `fr_ntt_plain`; at a small tile_log the CPU checks cross the tiles'
+    edges that the kernel's 2^11 tiles cross on the card."""
+    n = x.shape[0]
+    logn = n.bit_length() - 1
+    if 1 << logn != n:
+        raise ValueError(f"fr_ntt needs a power of two, not {n}")
+    dev = x.device
+    w_n, w_t = host.fr_w(logn), host.fr_w(tile_log)
+    if inverse:
+        w_n, w_t = pow(w_n, R - 2, R), pow(w_t, R - 2, R)
+    tw = _fr_powers(w_t, 1 << (tile_log - 1), dev)
+    plan = ntt_plan(logn, tile_log)
+    a = f_from_u32(x)
+    for q, p in enumerate(plan):
+        m, lm = 1 << p["lm"], p["lm"]
+        t = torch.arange(p["tiles"], device=dev)
+        th, tl = t // p["t_lo"], t % p["t_lo"]
+        j = torch.arange(m, device=dev)
+        gi = (th * p["a1"] + tl * p["a2"])[:, None] + j * p["in_stride"]
+        v = a[gi]
+        if q == 0 and shift is not None:
+            v = f_mul(FR, v, _fr_powers(shift, n, dev)[gi])
+        v = v[:, _bitrev(m, dev)]
+        for s in range(1, lm + 1):
+            h = 1 << (s - 1)
+            v = v.reshape(p["tiles"], m // (2 * h), 2, h, LIMBS)
+            w = tw[torch.arange(h, device=dev) << (tile_log - s)]
+            u = f_mul(FR, v[:, :, 1], w)
+            v = torch.stack([_ln(FR, v[:, :, 0] + u),
+                             f_sub(FR, v[:, :, 0], u)], 2)
+        v = v.reshape(p["tiles"], m, LIMBS)
+        if p["twist"]:
+            v = f_mul(FR, v, _fr_powers(w_n, n, dev)[tl[:, None] * j
+                                                    * p["twist"]])
+        go = (th * p["b1"] + tl * p["b2"])[:, None] + j * p["out_stride"]
+        if q == len(plan) - 1:
+            if inverse:
+                v = f_mul(FR, v, f_const(FR, pow(n, R - 2, R), dev))
+            if post is not None:
+                v = f_mul(FR, v, _fr_powers(post, n, dev)[go])
+        out = torch.empty_like(a)
+        out[go.reshape(-1)] = v.reshape(-1, LIMBS)
+        a = out
+    return f_to_u32(FR, a)
+
+
 @_plain
 def fr_pointwise_plain(a, b, c, z: int) -> torch.Tensor:
     """(a * b - c) * z elementwise over (n, 8) Fr elements."""
@@ -781,7 +934,8 @@ def g2_msm(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
 
 
 def fixed_base(scalars: torch.Tensor, g2: bool) -> torch.Tensor:
-    """k_i * G1 (or G2) for (N, 8) scalars below r."""
+    """k_i * G1 (or G2) for (N, 8) scalars below r (on the card, any
+    scalar below 2^256)."""
     if scalars.is_cuda:
         from . import bn254_cuda
         return bn254_cuda.fixed_base(scalars, g2)

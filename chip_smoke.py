@@ -55,7 +55,8 @@ Phases (any failure exits nonzero; no phase catches and continues):
     times before its redesign, `FIXED_BASE_MS_BEFORE`; `ntt_bound` per
     form, beside `FR_NTT_MS_BEFORE`; `pointwise_bound`: 32-bit multiply-adds
     of its Montgomery products at the IMAD rate against its bytes) and its
-    twin's time (at 2^16; the NTT and pointwise also at 2^22);
+    twin's time (at 2^16; the NTT and pointwise also at 2^22; the
+    pointwise kernel also timed at 2^21, the final wrap's size);
     the kernels line gives ms, plain_ms and bound_ms at one size
     (`log2_size`: 2^16 for the MSMs and the fixed base, 2^22 for the NTT
     and the pointwise step) and every size in its maps;
@@ -148,9 +149,13 @@ Phases (any failure exits nonzero; no phase catches and continues):
     dag_eval_kernel against `dag.run_plain` on the card, bit for bit, C *
     Zi also against `expr.eval_array`; the grand product of all the AIR's
     arguments in one launch against `calculate_z` of each, and of random
-    base and GL3 operands at 2^10, 2^17, 2^20 and 2^20 + 37 and with a
-    zero den; each timed beside its twin and its bound (`dag_bound`,
-    `grand_product_bound`);
+    base and GL3 operands at 2^10, 2^17, 2^20 and 2^20 + 37, at the
+    tiles' and look-back windows' edges (all four dim pairs a launch) and
+    with a zero den in the first, the last and a later tile's row; each
+    timed beside its twin and its bound (`dag_bound`,
+    `grand_product_bound`), the grand product also beside its time
+    before the redesign (`GP_MS_BEFORE`) with its registers and launch
+    shape;
  5c. the recursion over it (`run_recursion`): batch B, the generator's
     next ROM (seed `ROM_SEED` + 1) over the state batch A (phase 5b's)
     left, executed and proved under torch.profiler (its prove's seconds,
@@ -357,6 +362,10 @@ def _products(da: int, db: int) -> int:
 # loads, NVIDIA H100 80GB HBM3 at 700 W), logged beside this run's
 DAG_MS_BEFORE = {"quotient": 529.70, "fri": 66.90, "f_t": 4.58,
                  "num_den": 8.41, "num_den_ragged": 8.44}
+# grand_product's time in phase 3e on the AIR's 64 arguments before its
+# Hopper redesign (three passes, a Fermat inverse an element; NVIDIA H100
+# 80GB HBM3 at 700 W), logged beside this run's
+GP_MS_BEFORE = 2.806
 
 
 def dag_bound(prog, rows: int) -> tuple[float, str]:
@@ -1204,16 +1213,17 @@ def check_bn254(torch) -> dict:
     entries["fr_ntt"] = _bn_entry("fr_ntt", times, plain, bounds, 22)
     entries["fr_ntt"]["chain_forms_2_21"] = forms
     times, plain, bounds = {}, {}, {}
-    for bits in (16, 22):
+    for bits in (16, 21, 22):   # 2^21: the final wrap's size
         a, b, c = (card_bench.random_fr(torch, 1 << bits, 50 + i)
                    for i in range(3))
         if bits == 16:
             if not torch.equal(bd.fr_pointwise(a, b, c, 12345),
                                bd.fr_pointwise_plain(a, b, c, 12345)):
                 _fail("fr_pointwise != its plain twin at 2^16")
-        plain[bits] = _time_ms(
-            lambda: bd.fr_pointwise_plain(a, b, c, 12345),
-            reps=2 if bits == 16 else 1)
+        if bits != 21:
+            plain[bits] = _time_ms(
+                lambda: bd.fr_pointwise_plain(a, b, c, 12345),
+                reps=2 if bits == 16 else 1)
         times[bits] = _time_ms(lambda: bd.fr_pointwise(a, b, c, 12345))
         bounds[bits] = pointwise_bound(1 << bits)
     entries["fr_pointwise"] = _bn_entry("fr_pointwise", times, plain, bounds,
@@ -1222,6 +1232,8 @@ def check_bn254(torch) -> dict:
          + json.dumps({b: round(v, 4) for b, v in times.items()})
          + ", bound ms " + json.dumps(
              {b: [round(v[0], 4), v[1]] for b, v in bounds.items()})
+         + ", share " + json.dumps(
+             {b: round(bounds[b][0] / v, 4) for b, v in times.items()})
          + f", plain 2^16 {plain[16]:.1f} ms, 2^22 {plain[22]:.1f} ms; "
          f"BN254 checks "
          f"{time.perf_counter() - t_start:.1f} s")
@@ -2360,8 +2372,11 @@ def check_stark(torch, prover) -> dict:
     `dag.run_plain` on the card, bit for bit, and C * Zi also against
     `expr.eval_array`; the grand product of every argument (num and den
     from that num/den run, one launch) against `calculate_z` of each, and
-    of random base and GL3 operands at 2^10, 2^17, 2^20 and 2^20 + 37 and
-    with a zero den. Each timed beside its twin and its bound (`dag_bound`,
+    of random base and GL3 operands at 2^10, 2^17, 2^20 and 2^20 + 37, at
+    the tiles' edges (1, 2, a tile - 1, a tile, a tile + 1, 5 tiles + 37,
+    300 tiles + 37: more than two look-back windows) in all four dim
+    pairs a launch, and with a zero den in row 0, the last row and a later
+    tile's row. Each timed beside its twin and its bound (`dag_bound`,
     `grand_product_bound`); no PyTorch call computes either, so the
     library time is none. Returns the kernels-line entries (without
     `launches`)."""
@@ -2459,10 +2474,17 @@ def check_stark(torch, prover) -> dict:
     if any(not torch.equal(zk, w) for (_, _, zk), w in zip(args, want)):
         _fail("grand_product of the AIR's arguments != calculate_z")
     gp_bound = grand_product_bound(s.n, dims)
+    gp_plan = scu.grand_product_plan()
     _log(f"grand_product: {len(args)} arguments at 2^{s.n_bits} in one "
          f"launch {gp_ms:.3f} ms ({100 * gp_bound[0] / gp_ms:.2f} % of "
-         f"bound), == calculate_z of each ({gp_plain:.1f} ms); bound "
-         f"{gp_bound[0]:.4f} ms ({gp_bound[1]})")
+         f"bound; before the redesign {GP_MS_BEFORE} ms, "
+         f"{100 * gp_bound[0] / GP_MS_BEFORE:.2f} %), == calculate_z of "
+         f"each ({gp_plain:.1f} ms); bound {gp_bound[0]:.4f} ms "
+         f"({gp_bound[1]}); tile {gp_plan['tile']} rows, "
+         f"{gp_plan['threads']} threads a block, {gp_plan['registers']} "
+         f"registers, {gp_plan['local_bytes']} B of stack, "
+         f"{gp_plan['smem']} B of shared memory and "
+         f"{gp_plan['blocks_per_sm']} blocks an SM (GL3)")
     del nd, z, args, want
     sizes = {}
     for n in (1 << 10, 1 << 17, 1 << 20, (1 << 20) + 37):
@@ -2474,19 +2496,37 @@ def check_stark(torch, prover) -> dict:
             if not torch.equal(zz, _PLAIN["calculate_z"](num, den)):
                 _fail(f"grand_product ({nd_}, {dd}) at {n} != calculate_z")
             sizes[f"{n}:{nd_}{dd}"] = ms
+    # the tiles' and the look-back windows' edges, all four dim pairs in
+    # one launch (not timed)
+    tile = gp_plan["tile"]
+    edges = [1, 2, tile - 1, tile, tile + 1, 5 * tile + 37,
+             300 * tile + 37]
+    for n in edges:
+        ops = [(u(n) if nd_ == 1 else u(n, 3), u(n) if dd == 1 else u(n, 3),
+                torch.empty((n, 3), dtype=torch.int64, device="cuda"))
+               for nd_, dd in ((1, 1), (3, 3), (1, 3), (3, 1))]
+        sp.grand_products(ops)
+        for num, den, zz in ops:
+            if not torch.equal(zz, _PLAIN["calculate_z"](num, den)):
+                _fail(f"grand_product at {n} rows ({num.ndim}, {den.ndim} "
+                      "dims) != calculate_z")
+    n = 1 << 17
     for dd in (1, 3):
-        num, den = u(1 << 17, 3), (u(1 << 17) if dd == 1 else u(1 << 17, 3))
-        den[12345] = 0
-        zz = torch.empty((1 << 17, 3), dtype=torch.int64, device="cuda")
-        sp.grand_products([(num, den, zz)])
-        if not torch.equal(zz, _PLAIN["calculate_z"](num, den)) or \
-                zz[0].tolist() != [1, 0, 0] or bool(zz[1:].any()):
-            _fail(f"grand_product with a zero den (dim {dd}) != "
-                  "calculate_z's (1, 0, 0, ...)")
+        for row in (0, n - 1, 12345):
+            num, den = u(n, 3), (u(n) if dd == 1 else u(n, 3))
+            den[row] = 0
+            zz = torch.empty((n, 3), dtype=torch.int64, device="cuda")
+            sp.grand_products([(num, den, zz)])
+            if not torch.equal(zz, _PLAIN["calculate_z"](num, den)) or \
+                    zz[0].tolist() != [1, 0, 0] or bool(zz[1:].any()):
+                _fail(f"grand_product with a zero den in row {row} (dim "
+                      f"{dd}) != calculate_z's (1, 0, 0, ...)")
     _log("grand_product == calculate_z on random base and GL3 operands at "
          "2^10, 2^17, 2^20 and 2^20 + 37 (ms " + json.dumps(
-             {k: round(v, 4) for k, v in sizes.items()}) + ") and with a "
-         "zero den (z = (1, 0, 0, ...))")
+             {k: round(v, 4) for k, v in sizes.items()}) + "), at the "
+         f"tiles' edges {edges} in all four dim pairs a launch, and with a "
+         "zero den in the first, the last and a later tile's row (z = (1, "
+         "0, 0, ...))")
     torch.cuda.empty_cache()
     return {
         "dag_eval": {
@@ -2505,7 +2545,8 @@ def check_stark(torch, prover) -> dict:
             "max_abs_err": 0, "ms": gp_ms, "plain_ms": gp_plain,
             "bound_ms": gp_bound[0], "bound_by": gp_bound[1],
             "library_ms": None, "arguments": len(layout),
-            "log2_rows": s.n_bits, "ms_by_size": sizes}}
+            "log2_rows": s.n_bits, "ms_by_size": sizes,
+            "ms_before": GP_MS_BEFORE, "plan": gp_plan}}
 
 
 def run_recursion(torch, pcu, hcu, smt, tree, batch_a, res_a, prover_a,

@@ -21,6 +21,7 @@ from zkevm_prover_tpu_torch.ops import merkle
 from zkevm_prover_tpu_torch.ops import poseidon_constants as pc
 from zkevm_prover_tpu_torch.ops import poseidon_cuda
 from zkevm_prover_tpu_torch.ops import poseidon_gl as pos
+from zkevm_prover_tpu_torch.ops import stark_cuda
 from zkevm_prover_tpu_torch.stark import examples
 from zkevm_prover_tpu_torch.stark.prover import StarkProver
 from zkevm_prover_tpu_torch.stark.setup import StarkSetup
@@ -1024,7 +1025,15 @@ def _gp_operands(n, num_dim, den_dim, seed, device):
                                      dtype=np.uint64), device))
 
 
-@pytest.mark.parametrize("n", [1, 2, 1000, 1024, 1025, (1 << 14) + 37])
+# rows of one grand-product tile (a block): sizes that cross the tiles and
+# the look-back's windows of GP_LOOK * GP_LANES tiles
+GP_TILE = stark_cuda.GP_LANES * stark_cuda.GP_RUN
+GP_SIZES = [GP_TILE - 1, GP_TILE, GP_TILE + 1, 3 * GP_TILE + 37,
+            300 * GP_TILE + 37, (1 << 20) + 37]
+
+
+@pytest.mark.parametrize("n", list(dict.fromkeys(
+    [1, 2, 1000, 1024, 1025, (1 << 14) + 37] + GP_SIZES)))
 @pytest.mark.parametrize("num_dim,den_dim", [(1, 1), (3, 3), (1, 3), (3, 1)])
 def test_grand_product_kernel_matches_calculate_z(card, n, num_dim, den_dim):
     from zkevm_prover_tpu_torch.ops import stark_cuda
@@ -1059,6 +1068,68 @@ def test_grand_product_kernel_zero_den_and_batches(card, den_dim):
         assert sec[0, 3 * k:3 * k + 3].tolist() == [1, 0, 0]
         assert not bool(sec[1:, 3 * k:3 * k + 3].any())
     assert bool((sec[:, 12:] == -1).all())
+
+
+@pytest.mark.parametrize("den_dim", [1, 3])
+@pytest.mark.parametrize("where", ["first", "last", "later_tile"])
+def test_grand_product_kernel_zero_den_positions(card, den_dim, where):
+    """A zero den in row 0, in the last row or in a tile after the first
+    gives z = (1, 0, 0, ...) over every row, the rows of the tiles before
+    it too; the arguments beside it in the launch are untouched."""
+    from zkevm_prover_tpu_torch.stark import prover as sp
+
+    n = 5 * GP_TILE + 3
+    row = {"first": 0, "last": n - 1, "later_tile": 3 * GP_TILE + 7}[where]
+    args = [_gp_operands(n, 3, den_dim, 90 + k, card) for k in range(2)]
+    args[0][1][row] = 0
+    zs = [torch.full((n, 3), -1, dtype=torch.int64, device=card)
+          for _ in args]
+    sp.grand_products([(num, den, z) for (num, den), z in zip(args, zs)])
+    want = torch.zeros((n, 3), dtype=torch.int64, device=card)
+    want[0, 0] = 1
+    assert torch.equal(zs[0], want)
+    assert torch.equal(zs[0], sp.calculate_z(*args[0]))
+    assert torch.equal(zs[1], sp.calculate_z(*args[1]))
+
+
+def test_grand_product_kernel_mixed_dims_one_launch(card):
+    """All four (num dim, den dim) pairs in one launch, each equal to
+    calculate_z."""
+    from zkevm_prover_tpu_torch.stark import prover as sp
+
+    n = 7 * GP_TILE + 11
+    dims = [(1, 1), (3, 3), (1, 3), (3, 1)] * 2
+    args = [_gp_operands(n, d, e, 110 + k, card)
+            for k, (d, e) in enumerate(dims)]
+    before = stark_cuda.launches["grand_product"]
+    zs = [torch.full((n, 3), -1, dtype=torch.int64, device=card)
+          for _ in args]
+    sp.grand_products([(num, den, z) for (num, den), z in zip(args, zs)])
+    assert stark_cuda.launches["grand_product"] == before + 1
+    for (num, den), z in zip(args, zs):
+        assert torch.equal(z, sp.calculate_z(num, den))
+
+
+def test_grand_product_kernel_section_views_back_to_back(card):
+    """_phase3's layout: 68 arguments (more than one launch's 64) as
+    column views of one num/den section, z into views of another; two calls
+    back to back on other data, each equal to calculate_z (the look-back
+    scratch is reused: its counters and epoch must be ready again)."""
+    from zkevm_prover_tpu_torch.stark import prover as sp
+
+    n, k_args = 9 * GP_TILE + 5, 68
+    rng = np.random.default_rng(7)
+    for turn in range(2):
+        nd = gl.from_u64(rng.integers(1, gl.P, (n, 6 * k_args),
+                                      dtype=np.uint64), card)
+        cm3 = torch.full((n, 3 * k_args + 2), -1, dtype=torch.int64,
+                         device=card)
+        args = [(nd[:, 6 * k:6 * k + 3], nd[:, 6 * k + 3:6 * k + 6],
+                 cm3[:, 3 * k:3 * k + 3]) for k in range(k_args)]
+        sp.grand_products(args)
+        for num, den, z in args:
+            assert torch.equal(z, sp.calculate_z(num, den)), turn
+        assert bool((cm3[:, -2:] == -1).all())
 
 
 def test_stark_kernels_reject_what_they_do_not_take(card):

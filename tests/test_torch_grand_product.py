@@ -12,6 +12,7 @@ import pytest
 
 from zkevm_prover_tpu.stark import prover as jprover
 from zkevm_prover_tpu_torch.ops import goldilocks as gl
+from zkevm_prover_tpu_torch.ops import stark_cuda
 from zkevm_prover_tpu_torch.stark import prover as tprover
 
 
@@ -64,3 +65,42 @@ def test_grand_products_write_every_argument():
         np.testing.assert_array_equal(
             gl.to_u64(sec[:, 3 * k:3 * k + 3]),
             np.asarray(jprover.calculate_z(num, den)))
+
+
+# The kernel's decomposition (ops/stark_cuda.grand_product_model: its index
+# maps, runs, lane scan, tile aggregates and look-back, at tiny tiles)
+# against the JAX package's calculate_z. (n, lanes, run, look, in_flight):
+# one tile and less, a tile's edges, look-backs that end on an inclusive
+# prefix 2 and 4 tiles back (the butterfly's steps) and walks over several
+# windows (in_flight tiles before each still without their inclusive
+# prefix), and 2^12 rows over 64 tiles.
+MODEL_CASES = [(1, 4, 2, 2, 0), (7, 4, 2, 2, 0), (8, 4, 2, 2, 1),
+               (9, 4, 2, 2, 1), (75, 4, 2, 2, 2), (163, 4, 2, 2, 10),
+               (1 << 12, 8, 8, 4, 4)]
+
+
+@pytest.mark.parametrize("n,lanes,run,look,in_flight", MODEL_CASES)
+@pytest.mark.parametrize("num_dim,den_dim", [(1, 1), (3, 3), (1, 3), (3, 1)])
+def test_grand_product_model_matches_jax(n, lanes, run, look, in_flight,
+                                         num_dim, den_dim):
+    num, den = _operands(n, num_dim, den_dim, 7 * n + num_dim + den_dim)
+    z = stark_cuda.grand_product_model(
+        gl.from_u64(num, "cpu"), gl.from_u64(den, "cpu"), lanes=lanes,
+        run=run, look=look, in_flight=in_flight)
+    np.testing.assert_array_equal(gl.to_u64(z),
+                                  np.asarray(jprover.calculate_z(num, den)))
+
+
+@pytest.mark.parametrize("den_dim", [1, 3])
+@pytest.mark.parametrize("row", [0, 162, 100])
+def test_grand_product_model_zero_den_matches_jax(den_dim, row):
+    """A zero den in row 0, in the last row and in a later tile than the
+    first: the zero flag's rewrite, z = (1, 0, 0, ...)."""
+    num, den = _operands(163, 3, den_dim, 11 + row)
+    den[row] = 0
+    z = gl.to_u64(stark_cuda.grand_product_model(
+        gl.from_u64(num, "cpu"), gl.from_u64(den, "cpu"), lanes=4, run=2,
+        look=2, in_flight=10))
+    np.testing.assert_array_equal(z, np.asarray(jprover.calculate_z(num,
+                                                                    den)))
+    assert z[0].tolist() == [1, 0, 0] and not z[1:].any()

@@ -50,27 +50,37 @@
 //    / TILE) * TILE + 2 * CODE_CHUNK) bytes, sized at launch (at most
 //    200,704 at MAX_SLOTS); the scratch is blocks * leaf words * TILE
 //    words.
-//  - grand_product runs three passes over every argument at once (grid y
-//    = argument): (1) each thread takes ROWS_PER_THREAD consecutive rows,
-//    forms num * den^-1 (the inverse by the adjugate and a Fermat base
-//    inverse, per element), its exclusive prefix products within the
-//    thread, and a block-wide scan of the thread totals gives each row its
-//    exclusive product within the block; a zero den raises the argument's
-//    flag; (2) one block per argument scans the block totals; (3) each row
-//    takes its block's carry, or, under a raised flag, z = (1, 0, ...): the
-//    batch inversion's total inverse is inv(0) = 0 there, so every ratio
-//    and every z after the first is 0. GL3 products are exact, associative
-//    and commutative, so the scan's order gives the same bytes.
+//  - grand_product is one kernel launch over every argument (up to
+//    GP_MAX_ARGS a launch; the table is a kernel parameter) and writes z
+//    once: a block is one warp and one tile of GP_LANES * GP_RUN rows of one
+//    argument, taken from an atomic ticket counter, argument fastest, so
+//    the blocks running at once read the same rows of a shared num/den
+//    section and its sectors come from DRAM once. The warp stages the
+//    tile's num and den with cp.async (adjacent words of a few rows a
+//    copy), each lane runs GP_RUN consecutive rows with Montgomery's trick
+//    (forward products of num and den, one inverse of the run's den
+//    product, a backward sweep: four products an element and a share of
+//    one inverse, base products where den or num is base), the warp scans
+//    its lanes' ratios with shuffles, and a chained scan with decoupled
+//    look-back gives the tile its exclusive prefix: each tile publishes its
+//    aggregate, then its inclusive prefix, under a status word that carries
+//    the launch's epoch, so the scratch is never reset between launches.
+//    A zero den anywhere in an argument makes calculate_z's batch
+//    inversion return inv(0) = 0 for the total, z = (1, 0, ...): the tiles
+//    raise the argument's flag and the launch's last block rewrites its z.
+//    GL3 products are exact, associative and commutative, so the order of
+//    the products gives the same bytes.
 //
 // What bounds them on the H100: the interpreter's field products (a GL3
 // product is 6 widening 64-bit products by Karatsuba over x^3 - x - 1, one
 // reduction per coefficient; 12 before the Hopper redesign), its
 // instruction issue and its reads of the leaf scratch (each leaf read where
 // it is used: on the combined AIR's C * Zi about 16 times a word); the
-// grand product's per-element inverse (a 64-step Fermat chain) against 72
-// bytes an element (chip_smoke.dag_bound / grand_product_bound count the
-// least: products at the IMAD rate against every column read and every
-// output written once).
+// grand product's field products (four GL3 products an element, the run's
+// inverse: 64 squarings and 9 products of an addition chain, the warp
+// scan's 5 products a lane) against 72 bytes an element (chip_smoke.
+// dag_bound / grand_product_bound count the least: products at the IMAD
+// rate against every column read and every output written once).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -88,9 +98,17 @@ constexpr int MIN_BLOCKS = 4;       // blocks an SM holds (128 registers)
 constexpr int WARPS = THREADS / 32;
 constexpr int CODE_CHUNK = 256;     // instructions of one staged chunk,
 static_assert(CODE_CHUNK % THREADS == 0, "whole instructions a thread");
-constexpr int GP_THREADS = 256;
-constexpr int ROWS_PER_THREAD = 4;
-constexpr int GP_ROWS = GP_THREADS * ROWS_PER_THREAD;
+constexpr int GP_LANES = 32;        // threads of a grand-product block
+constexpr int GP_RUN = 16;          // consecutive rows of one lane
+constexpr int GP_MIN_BLOCKS = 16;   // blocks an SM holds (128 registers)
+constexpr int GP_MAX_ARGS = 64;     // arguments of one launch
+constexpr int GP_ENTRY = 8;         // u64 words of a tile's look-back entry
+constexpr int GP_LOOK = 4;          // entries a lane reads a look-back step
+constexpr int GP_BATCH = 8;         // 8-byte loads a lane has in flight
+// u64 words of a lane's run of GP_RUN elements of w words in shared memory
+__host__ __device__ constexpr int gp_pitch(int w) { return GP_RUN * w + 2; }
+constexpr int GP_HEAD = 4 + GP_MAX_ARGS;  // scratch words before the entries:
+                                    // ticket, done, epoch, 0, zero flags
 constexpr uint64_t P = gl::P;
 constexpr uint64_t EPS = 0xFFFFFFFFull;  // 2^64 mod p
 
@@ -230,15 +248,26 @@ __device__ __forceinline__ void f3_mul(const uint64_t a[3],
   r[2] = gl::canonical(gl::reduce_words(c2[0], c2[1], c2[2], c2[3], c2[4]));
 }
 
-// a^(p-2) (0 for a = 0): square-and-multiply on lazy values.
+// x^(2^k), lazy.
+__device__ __forceinline__ uint64_t f_sqn(uint64_t x, int k) {
+#pragma unroll 1
+  for (int i = 0; i < k; ++i) x = gl::square_lazy(x);
+  return x;
+}
+
+// a^(p-2) (0 for a = 0) by an addition chain on lazy values, 64 squarings
+// and 9 products: with x_k = a^(2^k - 1), p - 2 = 2^64 - 2^32 - 1 =
+// (2^31 - 1) 2^33 + (2^32 - 1), so a^(p-2) = x31^(2^33) x32.
 __device__ uint64_t f_inv(uint64_t a) {
-  const uint64_t e = P - 2;
-  uint64_t r = 1, b = a;
-  for (int i = 0; i < 64; ++i) {
-    if ((e >> i) & 1) r = gl::mul_lazy(r, b);
-    b = gl::square_lazy(b);
-  }
-  return gl::canonical(r);
+  const uint64_t x2 = gl::mul_lazy(gl::square_lazy(a), a);
+  const uint64_t x3 = gl::mul_lazy(gl::square_lazy(x2), a);
+  const uint64_t x6 = gl::mul_lazy(f_sqn(x3, 3), x3);
+  const uint64_t x12 = gl::mul_lazy(f_sqn(x6, 6), x6);
+  const uint64_t x24 = gl::mul_lazy(f_sqn(x12, 12), x12);
+  const uint64_t x30 = gl::mul_lazy(f_sqn(x24, 6), x6);
+  const uint64_t x31 = gl::mul_lazy(gl::square_lazy(x30), a);
+  const uint64_t x32 = gl::mul_lazy(gl::square_lazy(x31), a);
+  return gl::canonical(gl::mul_lazy(f_sqn(x31, 33), x32));
 }
 
 // ops/gl3.py inv: the adjugate of multiplication by a, over its
@@ -261,6 +290,13 @@ __device__ void f3_inv(const uint64_t a[3], uint64_t r[3]) {
 __device__ __forceinline__ void cp_async8(uint64_t* dst, const uint64_t* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint64_t* dst,
+                                           const uint64_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src)
                : "memory");
 }
@@ -621,168 +657,486 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
 // ---- kernel B: the grand products --------------------------------------
 
-// One argument of grand_product: 8 int64s (ops/stark_cuda.py _gp_table).
+// One argument of a launch (ops/stark_cuda.py grand_product's table row):
+// its columns' first elements, row strides in u64 words, dims (1 or 3) and
+// whether an element's num and den words are one 16-byte aligned run (a
+// num/den section's layout: each row's element is one vector load).
 struct GpArg {
   const uint64_t* num;
-  long long num_stride;
-  long long num_dim;
   const uint64_t* den;
-  long long den_stride;
-  long long den_dim;
   uint64_t* z;
+  long long num_stride;
+  long long den_stride;
   long long z_stride;
+  int dims;     // num dim * 4 + den dim
+  int paired;   // den = num + num dim words, 16-byte aligned, one stride
 };
 
-__device__ __forceinline__ void load3(const uint64_t* p, long long dim,
-                                      uint64_t v[3]) {
-  v[0] = p[0];
-  v[1] = dim == 3 ? p[1] : 0;
-  v[2] = dim == 3 ? p[2] : 0;
+// A launch's parameters: the argument table travels in the kernel's
+// parameter space (GP_MAX_ARGS * 56 bytes, under the 4 KB of any CUDA 12),
+// so nothing is copied to the card before the launch.
+struct GpParams {
+  GpArg arg[GP_MAX_ARGS];
+  uint64_t* scratch;
+  long long n;
+  long long tiles;
+  int n_args;
+};
+
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+__device__ __forceinline__ uint64_t ld_cg(const uint64_t* p) {
+  return static_cast<uint64_t>(
+      __ldcg(reinterpret_cast<const unsigned long long*>(p)));
+}
+__device__ __forceinline__ uint64_t ld_nc(const uint64_t* p) {
+  return static_cast<uint64_t>(
+      __ldg(reinterpret_cast<const unsigned long long*>(p)));
+}
+__device__ __forceinline__ void st_cg(uint64_t* p, uint64_t v) {
+  __stcg(reinterpret_cast<unsigned long long*>(p),
+         static_cast<unsigned long long>(v));
+}
+__device__ __forceinline__ uint64_t ld_relaxed(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-__device__ __forceinline__ void copy3(const uint64_t a[3], uint64_t r[3]) {
-  r[0] = a[0];
-  r[1] = a[1];
-  r[2] = a[2];
+// Kernel B's single GL3 products: one copy of f3_mul's code, which every
+// phase calls. Inlined at each of the kernel's dozen sites, the phases'
+// code outgrew the instruction cache, and warps in different phases of
+// their tiles stalled on instruction fetch. The runs' paired products
+// (g_mul2), two independent chains, are inlined in their two loops.
+struct F3 {
+  uint64_t v0, v1, v2;
+};
+__device__ __noinline__ F3 f3_mul_call(F3 a, F3 b) {
+  const uint64_t x[3] = {a.v0, a.v1, a.v2}, y[3] = {b.v0, b.v1, b.v2};
+  uint64_t r[3];
+  f3_mul(x, y, r);
+  return F3{r[0], r[1], r[2]};
 }
 
-// Exclusive scan of each thread's v over the block (Hillis-Steele on
-// shared memory): returns the product of the threads before this one in
-// excl and the block's product in total.
-__device__ void block_scan(uint64_t (*sh)[3], const uint64_t v[3],
-                           uint64_t excl[3], uint64_t total[3]) {
-  const int t = threadIdx.x;
-  copy3(v, sh[t]);
-  __syncthreads();
-  for (int off = 1; off < GP_THREADS; off *= 2) {
-    uint64_t r[3];
-    if (t >= off) {
-      f3_mul(sh[t - off], sh[t], r);
-    } else {
-      copy3(sh[t], r);
-    }
-    __syncthreads();
-    copy3(r, sh[t]);
-    __syncthreads();
-  }
-  if (t > 0) {
-    copy3(sh[t - 1], excl);
+// Values of dim D (1: base, 3: GL3) as arrays.
+template <int D>
+__device__ __forceinline__ void g_one(uint64_t* r) {
+  r[0] = 1;
+  if constexpr (D == 3) r[1] = r[2] = 0;
+}
+template <int D>
+__device__ __forceinline__ void g_copy(const uint64_t* a, uint64_t* r) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) r[i] = a[i];
+}
+// r = a * b, of dim max(A, B); r may be a or b when it has that dim.
+template <int A, int B>
+__device__ __forceinline__ void g_mul(const uint64_t* a, const uint64_t* b,
+                                      uint64_t* r) {
+  if constexpr (A == 3 && B == 3) {
+    const F3 m = f3_mul_call(F3{a[0], a[1], a[2]}, F3{b[0], b[1], b[2]});
+    r[0] = m.v0;
+    r[1] = m.v1;
+    r[2] = m.v2;
+  } else if constexpr (A == 3) {
+    const uint64_t s = b[0];
+    r[0] = f_mul(a[0], s);
+    r[1] = f_mul(a[1], s);
+    r[2] = f_mul(a[2], s);
+  } else if constexpr (B == 3) {
+    const uint64_t s = a[0];
+    r[0] = f_mul(s, b[0]);
+    r[1] = f_mul(s, b[1]);
+    r[2] = f_mul(s, b[2]);
   } else {
-    excl[0] = 1;
-    excl[1] = 0;
-    excl[2] = 0;
+    r[0] = f_mul(a[0], b[0]);
   }
-  copy3(sh[GP_THREADS - 1], total);
-  __syncthreads();
+}
+// r = a * b and s = c * d (dims A x B and C x E), both from the operands
+// as they were; r and s may be any of them. Two GL3 products are inlined
+// side by side, so that their instructions interleave.
+template <int A, int B, int C, int E>
+__device__ __forceinline__ void g_mul2(const uint64_t* a, const uint64_t* b,
+                                       uint64_t* r, const uint64_t* c,
+                                       const uint64_t* d, uint64_t* s) {
+  if constexpr (A == 3 && B == 3 && C == 3 && E == 3) {
+    uint64_t t[3], u[3];
+    f3_mul(a, b, t);
+    f3_mul(c, d, u);
+    g_copy<3>(t, r);
+    g_copy<3>(u, s);
+  } else {
+    constexpr int RA = A > B ? A : B, RC = C > E ? C : E;
+    uint64_t t[RA], u[RC];
+    g_mul<A, B>(a, b, t);
+    g_mul<C, E>(c, d, u);
+    g_copy<RA>(t, r);
+    g_copy<RC>(u, s);
+  }
+}
+template <int D>
+__device__ __forceinline__ void g_inv(const uint64_t* a, uint64_t* r) {
+  if constexpr (D == 3) {
+    f3_inv(a, r);
+  } else {
+    r[0] = f_inv(a[0]);
+  }
+}
+template <int D>
+__device__ __forceinline__ bool g_zero(const uint64_t* a) {
+  if constexpr (D == 3) return (a[0] | a[1] | a[2]) == 0;
+  return a[0] == 0;
+}
+template <int D>
+__device__ __forceinline__ void g_shfl_up(const uint64_t* a, uint64_t* r,
+                                          int off) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) r[i] = __shfl_up_sync(FULL, a[i], off);
+}
+template <int D>
+__device__ __forceinline__ void g_shfl_xor(const uint64_t* a, uint64_t* r,
+                                           int mask) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) r[i] = __shfl_xor_sync(FULL, a[i], mask);
+}
+template <int D>
+__device__ __forceinline__ void g_shfl(const uint64_t* a, uint64_t* r,
+                                       int lane) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) r[i] = __shfl_sync(FULL, a[i], lane);
 }
 
-// pass 1: z_i = the product of the block's ratios before row i; the
-// block's total into totals[arg][block]; a zero den raises flags[arg].
-__global__ void __launch_bounds__(GP_THREADS)
-    gp_block_kernel(const GpArg* __restrict__ args, long long n,
-                    uint64_t* __restrict__ totals, int* __restrict__ flags) {
-  __shared__ uint64_t sh[GP_THREADS][3];
-  const GpArg g = args[blockIdx.y];
-  const long long first = blockIdx.x * static_cast<long long>(GP_ROWS) +
-                          threadIdx.x * static_cast<long long>(ROWS_PER_THREAD);
-  uint64_t pre[ROWS_PER_THREAD][3];
-  uint64_t acc[3] = {1, 0, 0};
-  bool zero = false;
-  for (int e = 0; e < ROWS_PER_THREAD; ++e) {
-    copy3(acc, pre[e]);
-    const long long row = first + e;
-    if (row >= n) continue;
-    uint64_t num[3], den[3], inv[3], ratio[3], t[3];
-    load3(g.num + row * g.num_stride, g.num_dim, num);
-    load3(g.den + row * g.den_stride, g.den_dim, den);
-    if ((den[0] | den[1] | den[2]) == 0) zero = true;
-    if (g.den_dim == 1) {
-      inv[0] = f_inv(den[0]);
-      inv[1] = 0;
-      inv[2] = 0;
-    } else {
-      f3_inv(den, inv);
+// A tile's look-back entry (GP_ENTRY words): the status (epoch << 2 |
+// state: 1 the aggregate is out, 2 the inclusive prefix too), the
+// aggregate's 3 words, the inclusive prefix's 3 words. The values are
+// stored before the status with release order, so a reader that sees a
+// status of this epoch and then fences reads the values it names.
+template <int D>
+__device__ __forceinline__ void gp_publish(uint64_t* entry, const uint64_t* v,
+                                           uint64_t epoch, int state) {
+  uint64_t* dst = entry + (state == 2 ? 4 : 1);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) st_cg(dst + i, i < D ? v[i] : 0);
+  st_release(entry, epoch << 2 | static_cast<uint64_t>(state));
+}
+
+// The product of the ratios of every tile before `tile` of one argument
+// (D: their dim), by decoupled look-back over the argument's entries, a
+// window of GP_LOOK * GP_LANES tiles at a time: lane i reads the entries
+// of tiles base - i - GP_LANES j (j < GP_LOOK), waiting until each is
+// published in this epoch (a tile of a smaller ticket, so one already
+// running); the nearest tile that holds an inclusive prefix ends the walk
+// and tiles past it count 1. Each lane multiplies what it read into its
+// own product, window after window (only the rows of entries up to the
+// inclusive), and the warp multiplies the lanes' products once at the end
+// (only as many butterfly steps as lanes hold a value). Tiles before
+// tile 0 read as an inclusive prefix of 1.
+template <int D>
+__device__ void gp_look_back(const uint64_t* entries, long long tile,
+                             uint64_t epoch, int lane, uint64_t carry[D]) {
+  constexpr int WINDOW = GP_LOOK * GP_LANES;
+  g_one<D>(carry);
+  int span = 0;            // lanes holding a product other than 1
+  for (long long base = tile - 1;; base -= WINDOW) {
+    // the statuses, all loads in flight at once (a tile before 0 reads as
+    // an inclusive prefix), then one fence orders the values' reads
+    const uint64_t ready = epoch << 2 | 2;
+    uint64_t s[GP_LOOK];
+#pragma unroll
+    for (int j = 0; j < GP_LOOK; ++j) {
+      const long long idx = base - lane - GP_LANES * j;
+      s[j] = idx >= 0 ? ld_relaxed(entries + idx * GP_ENTRY) : ready;
     }
-    f3_mul(num, inv, ratio);
-    f3_mul(acc, ratio, t);
-    copy3(t, acc);
+#pragma unroll
+    for (int j = 0; j < GP_LOOK; ++j) {
+      const uint64_t* e = entries + (base - lane - GP_LANES * j) * GP_ENTRY;
+      while ((s[j] >> 2) != epoch || (s[j] & 3) == 0) {
+        __nanosleep(32);
+        s[j] = ld_relaxed(e);
+      }
+    }
+    __threadfence();
+    unsigned inc = 0;      // bit j: the lane's entry j holds an inclusive
+    int stop = WINDOW;     // the nearest inclusive's offset in the window
+#pragma unroll
+    for (int j = 0; j < GP_LOOK; ++j) {
+      const bool inclusive = (s[j] & 3) == 2;
+      inc |= static_cast<unsigned>(inclusive) << j;
+      const unsigned b = __ballot_sync(FULL, inclusive);
+      if (b && stop == WINDOW) stop = GP_LANES * j + __ffs(b) - 1;
+    }
+    // the values up to the nearest inclusive (stop is the warp's: rows j
+    // of entries past it are skipped by every lane)
+    uint64_t v[GP_LOOK][D];
+#pragma unroll
+    for (int j = 0; j < GP_LOOK; ++j) {
+      const long long idx = base - lane - GP_LANES * j;
+      g_one<D>(v[j]);
+      if (GP_LANES * j > stop) break;
+      if (idx < 0 || GP_LANES * j + lane > stop) continue;
+      const uint64_t* src = entries + idx * GP_ENTRY + ((inc >> j) & 1 ? 4 : 1);
+#pragma unroll
+      for (int i = 0; i < D; ++i) v[j][i] = ld_cg(src + i);
+    }
+#pragma unroll
+    for (int j = 0; j < GP_LOOK; ++j) {
+      if (GP_LANES * j > stop) break;
+      g_mul<D, D>(carry, v[j], carry);
+    }
+    if (stop < WINDOW) {
+      if (span < GP_LANES) span = stop + 1 < GP_LANES ? stop + 1 : GP_LANES;
+      break;
+    }
+    span = GP_LANES;
   }
-  if (zero) flags[blockIdx.y] = 1;
-  uint64_t excl[3], total[3];
-  block_scan(sh, acc, excl, total);
-  for (int e = 0; e < ROWS_PER_THREAD; ++e) {
-    const long long row = first + e;
-    if (row >= n) break;
-    uint64_t r[3];
-    f3_mul(excl, pre[e], r);
-    uint64_t* z = g.z + row * g.z_stride;
-    z[0] = r[0];
-    z[1] = r[1];
-    z[2] = r[2];
+  // the lanes' products: lanes from `span` on hold 1, so the butterfly's
+  // first ceil(log2(span)) steps give lane 0 the whole product
+#pragma unroll 1
+  for (int off = 1; off < span; off *= 2) {
+    uint64_t o[D];
+    g_shfl_xor<D>(carry, o, off);
+    g_mul<D, D>(carry, o, carry);
   }
-  if (threadIdx.x == 0) {
-    uint64_t* t = totals + 3 * (blockIdx.y * static_cast<long long>(gridDim.x)
-                                + blockIdx.x);
-    copy3(total, t);
+  g_shfl<D>(carry, carry, 0);
+}
+
+// z of row r (3 words; RD of them from v, the rest 0) unless r >= n.
+template <int RD>
+__device__ __forceinline__ void gp_store(uint64_t* z, long long stride,
+                                         long long r, long long n,
+                                         const uint64_t* v) {
+  if (r >= n) return;
+  uint64_t* p = z + r * stride;
+  p[0] = v[0];
+  if constexpr (RD == 3) {
+    p[1] = v[1];
+    p[2] = v[2];
+  } else {
+    p[1] = p[2] = 0;
   }
 }
 
-// pass 2: totals[arg][b] <- the product of totals[arg][< b] (one block per
-// argument; each thread scans a run of consecutive blocks).
-__global__ void __launch_bounds__(GP_THREADS)
-    gp_carry_kernel(uint64_t* __restrict__ totals, long long n_blocks) {
-  __shared__ uint64_t sh[GP_THREADS][3];
-  uint64_t* t = totals + 3 * blockIdx.x * n_blocks;
-  const long long per = (n_blocks + GP_THREADS - 1) / GP_THREADS;
-  const long long lo = threadIdx.x * per;
-  const long long hi = lo + per < n_blocks ? lo + per : n_blocks;
-  uint64_t acc[3] = {1, 0, 0};
-  for (long long b = lo; b < hi; ++b) {
-    uint64_t r[3];
-    f3_mul(acc, t + 3 * b, r);
-    copy3(r, acc);
-  }
-  uint64_t carry[3], total[3];
-  block_scan(sh, acc, carry, total);
-  for (long long b = lo; b < hi; ++b) {
-    uint64_t old[3], r[3];
-    copy3(t + 3 * b, old);
-    copy3(carry, t + 3 * b);
-    f3_mul(carry, old, r);
-    copy3(r, carry);
-  }
-}
-
-// pass 3: each row times its block's carry; z = (1, 0, 0), 0, ... where
-// the argument's flag is raised.
-__global__ void __launch_bounds__(GP_THREADS)
-    gp_apply_kernel(const GpArg* __restrict__ args, long long n,
-                    const uint64_t* __restrict__ totals,
-                    const int* __restrict__ flags) {
-  const GpArg g = args[blockIdx.y];
-  const bool zero = flags[blockIdx.y] != 0;
-  if (!zero && blockIdx.x == 0) return;
-  uint64_t carry[3];
-  copy3(totals + 3 * (blockIdx.y * static_cast<long long>(gridDim.x) +
-                      blockIdx.x), carry);
-  const long long first = blockIdx.x * static_cast<long long>(GP_ROWS) +
-                          threadIdx.x * static_cast<long long>(ROWS_PER_THREAD);
-  for (int e = 0; e < ROWS_PER_THREAD; ++e) {
-    const long long row = first + e;
-    if (row >= n) break;
-    uint64_t* z = g.z + row * g.z_stride;
-    if (zero) {
-      z[0] = row == 0 ? 1 : 0;
-      z[1] = 0;
-      z[2] = 0;
-    } else {
-      uint64_t v[3], r[3];
-      copy3(z, v);
-      f3_mul(carry, v, r);
-      copy3(r, z);
+// One tile (GP_LANES * RUN rows, RUN = GP_RUN) of one argument, num of dim
+// ND, den of dim DD, on one warp: lane l runs rows l * RUN .. l * RUN + RUN
+// - 1 of it.
+//  1. The warp stages the tile's num and den words in shared memory, the
+//     lanes on adjacent words of a few rows: a paired argument (each
+//     element's W words one 16-byte aligned run, as in a num/den section)
+//     with 16-byte cp.async, all of the tile in flight at once; any other
+//     with 8-byte loads, GP_BATCH a lane in flight. Each lane's run is RUN
+//     slots of W words in a row of PITCH words (RUN * W + 2: the slots
+//     16-byte aligned, the lanes' 8-byte accesses of a slot at most two to
+//     a bank). Rows past n stage as num = den = 1.
+//  2. Forward over the run: D_k = d_0 ... d_k and N_k = n_0 ... n_k (the
+//     two products one call), N_k written over n_k; the run's ratio N / D
+//     through one inverse I of D_{RUN-1} (GL3: the adjugate over a base
+//     inverse; base den: a base inverse, and base products).
+//  3. The warp's inclusive scan of the runs' ratios (__shfl_up, RD limbs);
+//     the warp's total is the tile's aggregate.
+//  4. The tile's exclusive prefix: tile 0 publishes its inclusive prefix
+//     at once, any other its aggregate, then looks back and publishes its
+//     inclusive prefix.
+//  5. Backward over the run from S = carry / D_{RUN-1}, carry the product
+//     of every row before the run: S_k = S_{k+1} d_k is carry / D_{k-1}
+//     and z_k = N_{k-1} S_k, paired in one call with the next S; z of the
+//     run's first row is the carry. Each z row is stored as it is formed.
+// Four products an element, two calls of two. A zero den gives D = 0, I =
+// 0 and zero ratios from there on; it raises the argument's zero flag, and
+// the launch's last block rewrites z.
+template <int ND, int DD>
+__device__ __forceinline__ void gp_tile(const GpArg& g, long long n,
+                                        long long tile, uint64_t* entries,
+                                        uint64_t* zero_flag, uint64_t epoch,
+                                        uint64_t* sh, int lane) {
+  constexpr int W = ND + DD;
+  constexpr int RD = ND == 3 || DD == 3 ? 3 : 1;
+  constexpr int RUN = GP_RUN;
+  constexpr int PITCH = gp_pitch(W);
+  constexpr int ROWS = GP_LANES * RUN;
+  // the argument's fields once into registers: read in the loops, each
+  // would be a dynamically indexed constant load
+  const uint64_t* const num = g.num;
+  const uint64_t* const den = g.den;
+  uint64_t* const z_out = g.z;
+  const long long ns = g.num_stride, ds = g.den_stride, zs = g.z_stride;
+  const long long row0 = tile * ROWS;
+  if (g.paired) {
+    // lane = part + C * sub: 16-byte part `part` of rows sub, sub + R, ...
+    constexpr int C = W / 2, R = GP_LANES / C;
+    const int part = lane % C, sub = lane / C, w = 2 * part;
+    if (sub < R) {
+      const uint64_t* src = num + (row0 + sub) * ns + w;
+#pragma unroll 4
+      for (int row = sub; row < ROWS; row += R, src += R * ns) {
+        uint64_t* dst = sh + (row / RUN) * PITCH + (row % RUN) * W + w;
+        if (row0 + row < n) {
+          cp_async16(dst, src);
+        } else {
+          dst[0] = w == 0 || w == ND;
+          dst[1] = w + 1 == ND;
+        }
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+  } else {
+    // lane = w + W * sub: word w of rows sub, sub + R, ..., GP_BATCH
+    // loads in flight
+    constexpr int R = GP_LANES / W;
+    const int w = lane % W, sub = lane / W;
+    if (sub < R) {
+      const bool of_num = w < ND;
+      const uint64_t* const src = of_num ? num + w : den + (w - ND);
+      const long long st = of_num ? ns : ds;
+      const uint64_t pad = w == 0 || w == ND;
+#pragma unroll 1
+      for (int row = sub; row < ROWS; row += R * GP_BATCH) {
+        uint64_t v[GP_BATCH];
+#pragma unroll
+        for (int b = 0; b < GP_BATCH; ++b) {
+          const int rr = row + R * b;
+          v[b] = rr < ROWS && row0 + rr < n ? ld_nc(src + (row0 + rr) * st)
+                                            : pad;
+        }
+#pragma unroll
+        for (int b = 0; b < GP_BATCH; ++b) {
+          const int rr = row + R * b;
+          if (rr < ROWS) sh[(rr / RUN) * PITCH + (rr % RUN) * W + w] = v[b];
+        }
+      }
     }
   }
+  __syncwarp();
+
+  uint64_t* run = sh + lane * PITCH;
+  uint64_t D[DD], N[ND];
+  g_one<DD>(D);
+  g_one<ND>(N);
+#pragma unroll 1
+  for (int k = 0; k < RUN; ++k) {
+    uint64_t* s = run + k * W;
+    g_mul2<DD, DD, ND, ND>(D, s + ND, D, N, s, N);
+    g_copy<ND>(N, s);
+  }
+  const bool zero = g_zero<DD>(D);
+  uint64_t I[DD], incl[RD];
+  g_inv<DD>(D, I);
+  g_mul<ND, DD>(N, I, incl);
+
+#pragma unroll 1
+  for (int off = 1; off < GP_LANES; off *= 2) {
+    uint64_t o[RD];
+    g_shfl_up<RD>(incl, o, off);
+    if (lane >= off) g_mul<RD, RD>(o, incl, incl);
+  }
+  uint64_t excl[RD], agg[RD];
+  g_shfl_up<RD>(incl, excl, 1);
+  if (lane == 0) g_one<RD>(excl);
+  g_shfl<RD>(incl, agg, GP_LANES - 1);
+  if (__any_sync(FULL, zero) && lane == 0) st_cg(zero_flag, epoch + 1);
+
+  uint64_t* mine = entries + tile * GP_ENTRY;
+  uint64_t carry[RD];
+  if (tile == 0) {
+    if (lane == 0) gp_publish<RD>(mine, agg, epoch, 2);
+    g_one<RD>(carry);
+  } else {
+    if (lane == 0) gp_publish<RD>(mine, agg, epoch, 1);
+    gp_look_back<RD>(entries, tile, epoch, lane, carry);
+    if (lane == 0) {
+      uint64_t t[RD];
+      g_mul<RD, RD>(carry, agg, t);
+      gp_publish<RD>(mine, t, epoch, 2);
+    }
+  }
+
+  const long long first = row0 + lane * RUN;
+  g_mul<RD, RD>(carry, excl, carry);
+  uint64_t S[RD], z[RD];
+  g_mul<RD, DD>(carry, I, S);
+  g_mul<RD, DD>(S, run + (RUN - 1) * W + ND, S);
+#pragma unroll 1
+  for (int k = RUN - 2; k >= 1; --k) {
+    const uint64_t* s = run + k * W;
+    g_mul2<RD, DD, ND, RD>(S, s + ND, S, s, S, z);
+    gp_store<RD>(z_out, zs, first + k + 1, n, z);
+  }
+  g_mul<ND, RD>(run, S, z);
+  gp_store<RD>(z_out, zs, first + 1, n, z);
+  gp_store<RD>(z_out, zs, first, n, carry);
 }
+
+// Every argument of a launch: one warp a block and a tile a block, the
+// tile and argument from a ticket of an atomic counter (argument fastest,
+// so the blocks running at once read the same rows of a shared section and
+// a tile's ticket comes after its predecessor's: the look-back never waits
+// on a block that has not started). The launch's last block (a second
+// counter) rewrites z = (1, 0, 0), 0, ... of every argument whose zero
+// flag it raised (calculate_z's batch inversion: the total's inverse is
+// inv(0) = 0), resets both counters and moves the epoch on, so the scratch
+// is never reset by the host.
+__global__ void __launch_bounds__(GP_LANES, GP_MIN_BLOCKS)
+    grand_product_kernel(const __grid_constant__ GpParams p) {
+  extern __shared__ uint64_t gp_sh[];
+  const int lane = threadIdx.x;
+  uint64_t* head = p.scratch;
+  unsigned long long ticket = 0;
+  if (lane == 0)
+    ticket = atomicAdd(reinterpret_cast<unsigned long long*>(head), 1ull);
+  ticket = __shfl_sync(FULL, ticket, 0);
+  const uint64_t epoch = ld_cg(head + 2);
+  const long long tile = static_cast<long long>(ticket) / p.n_args;
+  const int a = static_cast<int>(static_cast<long long>(ticket) -
+                                 tile * p.n_args);
+  const GpArg& g = p.arg[a];
+  uint64_t* entries = head + GP_HEAD + a * p.tiles * GP_ENTRY;
+  uint64_t* zero = head + 4 + a;
+  switch (g.dims) {
+    case 5:
+      gp_tile<1, 1>(g, p.n, tile, entries, zero, epoch, gp_sh, lane);
+      break;
+    case 7:
+      gp_tile<1, 3>(g, p.n, tile, entries, zero, epoch, gp_sh, lane);
+      break;
+    case 13:
+      gp_tile<3, 1>(g, p.n, tile, entries, zero, epoch, gp_sh, lane);
+      break;
+    default:
+      gp_tile<3, 3>(g, p.n, tile, entries, zero, epoch, gp_sh, lane);
+  }
+  __syncwarp();
+  unsigned long long done = 0;
+  if (lane == 0) {
+    __threadfence();
+    done = atomicAdd(reinterpret_cast<unsigned long long*>(head + 1), 1ull);
+  }
+  done = __shfl_sync(FULL, done, 0);
+  if (done + 1 != static_cast<unsigned long long>(p.tiles * p.n_args)) return;
+  __threadfence();
+  for (int b = 0; b < p.n_args; ++b) {
+    if (ld_cg(head + 4 + b) != epoch + 1) continue;
+    const GpArg& h = p.arg[b];
+    for (long long e = lane; e < 3 * p.n; e += GP_LANES) {
+      const long long r = e / 3;
+      h.z[r * h.z_stride + (e - 3 * r)] = e == 0;
+    }
+  }
+  if (lane == 0) {
+    st_cg(head, 0);
+    st_cg(head + 1, 0);
+    st_cg(head + 2, epoch + 1);
+  }
+}
+
+// Dynamic shared memory of one block for arguments of dims (nd, dd).
+int gp_smem(int nd, int dd) { return 8 * GP_LANES * gp_pitch(nd + dd); }
 
 }  // namespace
 
@@ -841,27 +1195,64 @@ extern "C" int stark_dag_eval(const void* code, int n_ops, const void* uni,
   return static_cast<int>(cudaGetLastError());
 }
 
-// z of n_args arguments of n rows each (`args`: a device table of GpArg),
-// with the scratch `totals` ((n_args, ceil(n / 1024), 3) u64) and `flags`
-// ((n_args,) int32, zeroed by the caller). Returns the cudaError of the
-// launches.
-extern "C" int stark_grand_product(const void* args, int n_args, long long n,
-                                   void* totals, void* flags, void* stream) {
+
+// The grand products of n_args arguments of n rows each: `table` a host
+// array of 8 int64s an argument (num, its row stride and dim, den, its row
+// stride and dim, z, its row stride; strides in u64 words), in launches of
+// at most GP_MAX_ARGS arguments; `scratch` GP_HEAD + min(n_args,
+// GP_MAX_ARGS) * tiles * GP_ENTRY u64 words, zeroed once when it is
+// allocated (the kernel leaves it ready for the next launch). Returns the
+// cudaError of the launches.
+extern "C" int stark_grand_product(const long long* table, int n_args,
+                                   long long n, void* scratch, void* stream) {
   if (n <= 0 || n_args <= 0) return 0;
-  const long long n_blocks = (n + GP_ROWS - 1) / GP_ROWS;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_blocks),
-                  static_cast<unsigned>(n_args));
-  const GpArg* a = static_cast<const GpArg*>(args);
-  uint64_t* t = static_cast<uint64_t*>(totals);
-  int* f = static_cast<int*>(flags);
-  gp_block_kernel<<<grid, GP_THREADS, 0, s>>>(a, n, t, f);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  gp_carry_kernel<<<static_cast<unsigned>(n_args), GP_THREADS, 0, s>>>(
-      t, n_blocks);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  gp_apply_kernel<<<grid, GP_THREADS, 0, s>>>(a, n, t, f);
-  return static_cast<int>(cudaGetLastError());
+  for (int first = 0; first < n_args; first += GP_MAX_ARGS) {
+    GpParams p;
+    p.n_args = n_args - first < GP_MAX_ARGS ? n_args - first : GP_MAX_ARGS;
+    int smem = 0;
+    for (int i = 0; i < p.n_args; ++i) {
+      const long long* t = table + 8 * (first + i);
+      GpArg& g = p.arg[i];
+      g.num = reinterpret_cast<const uint64_t*>(t[0]);
+      g.num_stride = t[1];
+      g.den = reinterpret_cast<const uint64_t*>(t[3]);
+      g.den_stride = t[4];
+      g.z = reinterpret_cast<uint64_t*>(t[6]);
+      g.z_stride = t[7];
+      g.dims = static_cast<int>(t[2] * 4 + t[5]);
+      g.paired = g.den == g.num + t[2] && g.den_stride == g.num_stride &&
+                 t[1] % 2 == 0 && t[0] % 16 == 0;
+      const int b = gp_smem(static_cast<int>(t[2]), static_cast<int>(t[5]));
+      smem = b > smem ? b : smem;
+    }
+    p.scratch = static_cast<uint64_t*>(scratch);
+    p.n = n;
+    p.tiles = (n + GP_LANES * GP_RUN - 1) / (GP_LANES * GP_RUN);
+    grand_product_kernel<<<static_cast<unsigned>(p.tiles * p.n_args),
+                           GP_LANES, smem, s>>>(p);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+  }
+  return 0;
+}
+
+// grand_product_kernel's build and launch shape: out[0..7] = rows of a
+// tile, threads of a block, registers a thread, local (stack) bytes a
+// thread, shared bytes of a GL3 block, GL3 blocks an SM holds, GP_HEAD,
+// GP_ENTRY. Returns the cudaError of the queries.
+extern "C" int stark_grand_product_plan(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, grand_product_kernel);
+  const int smem = gp_smem(3, 3);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, grand_product_kernel, GP_LANES, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[8] = {GP_LANES * GP_RUN, GP_LANES, attr.numRegs,
+                    static_cast<int>(attr.localSizeBytes), smem, per_sm,
+                    GP_HEAD, GP_ENTRY};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }
